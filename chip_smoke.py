@@ -8,16 +8,25 @@ Phases, in order:
   2. build: ``nvcc`` compiles the kernels from ``src/repro_torch/kernels/csrc``;
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at the serving path's shapes plus edge cases, with timings and bounds;
+     Each kernel with a compressed-corpus (``_q``) entry point is also run on
+     int8 and residual corpora and held to its float32 twin on the
+     dequantized corpus bit for bit;
   4. main path: ``serve_queries`` dense and bandit (fused and chain round
      bodies) over a 65,536-doc corpus at the text config's widths (T=32,
      L=128, M=128), with launch counts, cross-checks, throughput and a
-     profiled call per flavor (device busy time, top kernels).
+     profiled call per flavor (device busy time, top kernels);
+  5. compressed serving: ``build_corpus`` encodes the same corpus as f32,
+     int8 and residual (8 centroids); ``make_serving_step`` dense and
+     bandit (fused and chain) rerank phase 4's stage-1 candidates on each,
+     with launch counts, resident bytes per doc, rerank-step times, a
+     profiled call per step and the fidelity checks.
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
 JSON. TF32 is switched off for matrix products and cuDNN, so every float32
 reference product runs in full float32.
 """
+import functools
 import json
 import statistics
 import subprocess
@@ -36,6 +45,7 @@ CORPUS = dict(n_docs=65536, doc_len=128, min_doc_len=32, query_len=32,
 MAX_CANDIDATES = 256
 K = 5
 NEG = float(np.float32(-3e38))   # the all-masked sentinel as float32
+PAD = 512                        # spin kernels that open every profile
 
 
 def fail(msg: str) -> None:
@@ -86,6 +96,13 @@ def check_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return max_err(got, want)
 
 
+def unit_rows(gen, shape):
+    """Unit-norm random rows, as served query tokens are: every cell then
+    has sum_m |e_m q_m| <= 1, so a summation order moves it by ~1e-8."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return x / x.norm(dim=-1, keepdim=True)
+
+
 def corpus_like(gen, D, L, M, dtype, min_len, dead=()):
     """Unit-norm doc tokens with prefix masks of random length >= min_len;
     docs listed in ``dead`` are all-masked."""
@@ -107,15 +124,20 @@ def main() -> int:
     from repro_torch.core.metrics import overlap_at_k
     from repro_torch.data.synthetic import make_retrieval_dataset
     from repro_torch.kernels import _build
+    from repro_torch.core.frontier import TorchDraws
     from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
-        gather_maxsim_plain
+        gather_maxsim_plain, gather_maxsim_q_cuda
     from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
-        maxsim_batch_plain
+        maxsim_batch_plain, maxsim_batch_q_cuda
+    from repro_torch.kernels.quant import corpus_nbytes, corpus_reshape, \
+        dequantize, quantize
     from repro_torch.kernels.reveal import fused_reveal_cuda, \
-        fused_reveal_plain
+        fused_reveal_plain, fused_reveal_q_cuda
+    from repro_torch.retrieval.corpus import build_corpus
     from repro_torch.retrieval.index import from_numpy
     from repro_torch.retrieval.pipeline import candidates_for, serve_queries
-    from repro_torch.retrieval.service import gather_candidates
+    from repro_torch.retrieval.service import gather_candidates, \
+        make_serving_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -148,6 +170,21 @@ def main() -> int:
         t_b, t_f = nbytes / bw * 1e3, flops / f32_peak * 1e3
         return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
+    def reveal_reads(sets, m):
+        """Means over the rotated selections of what a reveal launch
+        computes on and must read once: valid tokens of the selected docs
+        (with repeats, for the flops), and the valid tokens, docs and query
+        rows it touches (each distinct one once, for the bytes)."""
+        valid = docs = toks = 0
+        for di, ti, _ in sets:
+            u = torch.unique(di)
+            valid += int(m[u].sum())
+            docs += u.numel()
+            toks += torch.unique(ti).numel()
+        n = len(sets)
+        flops_valid = sum(int(m[s[0]].sum()) for s in sets) / n
+        return flops_valid, valid / n, docs / n, toks / n
+
     # maxsim: edge cases, then the dense path's shape (B=16, N=256).
     cases = [("slice", 16, 256, 128, 32, 128, torch.float32),
              ("bf16", 16, 256, 128, 32, 128, torch.bfloat16),
@@ -156,7 +193,7 @@ def main() -> int:
     for label, Bq, N, L, T, M, dt in cases:
         e, m = corpus_like(gen, Bq * N, L, M, dt, min(32, L), dead=(1,))
         e, m = e.reshape(Bq, N, L, M), m.reshape(Bq, N, L)
-        q = torch.randn((Bq, T, M), generator=gen, device="cuda").to(dt)
+        q = unit_rows(gen, (Bq, T, M)).to(dt)
         got = maxsim_batch_cuda(e, m, q)
         err = check_close(f"maxsim {label}", got, maxsim_batch_plain(e, m, q))
         if float(got[0, 1].max()) != NEG:
@@ -189,7 +226,7 @@ def main() -> int:
                     ("G=64", 64, 64, 128, 128, torch.float32, "random")]
     for label, F, G, L, M, dt, fresh in reveal_cases:
         e, m = corpus_like(gen, D, L, M, dt, min(32, L), dead=(3, 5))
-        qt = torch.randn((TQ, M), generator=gen, device="cuda").to(dt)
+        qt = unit_rows(gen, (TQ, M)).to(dt)
         sets = []
         for _ in range(8):   # rotate selections so a launch finds its docs cold
             di = torch.randint(0, D, (F,), generator=gen, device="cuda")
@@ -225,9 +262,10 @@ def main() -> int:
             it[0] += 1
             return sets[it[0] % len(sets)]
 
-        valid = sum(int(m[s[0]].sum()) for s in sets) / len(sets)
+        valid, valid_u, docs_u, toks_u = reveal_reads(sets, m)
         esz = e.element_size()
-        common = valid * M * esz + F * L + F * G * M * 4 + F * 8 + F * G * 8
+        common = (valid_u * M * esz + docs_u * L + toks_u * M * esz + F * 8
+                  + F * G * 8)
         for kname, fn, plain, extra in (
                 ("gather_maxsim",
                  lambda: gather_maxsim_cuda(e, m, qt, *nxt()[:2]),
@@ -252,6 +290,160 @@ def main() -> int:
                   f"{json.dumps(rec)}", flush=True)
             if label == "round":
                 records[kname] = rec
+
+    # 3b. the _q kernels on compressed corpora: against the plain version
+    # (same tolerance) and against the f32 kernel on the dequantized corpus
+    # (bit for bit). The JSON line carries the int8 timings; residual ones
+    # are printed beside them.
+    def quant_like(D, L, M, fmt, Kc, dead):
+        """A corpus_like corpus encoded as ``fmt``, with an all-zero token
+        row to encode (scale 0) in doc 2 (for residual: a row on a
+        centroid, whose residual is zero) and, for residual, a row coded
+        Kc - 1 in doc 4."""
+        e, m = corpus_like(gen, D, L, M, torch.float32, min(32, L), dead)
+        e[2, 0] = 0.0
+        cb = None
+        if fmt == "residual":
+            cb = unit_rows(gen, (Kc, M))
+            e[2, 0] = cb[0]
+            e[4, 0] = 2.0 * cb[Kc - 1]
+        qt = quantize(e, fmt, codebook=cb)
+        if float(qt.scales[2, 0]) != 0.0 or (
+                fmt == "residual" and int(qt.codes[4, 0]) != Kc - 1):
+            fail(f"{fmt}: the edge rows were not encoded as intended")
+        return qt, m
+
+    def quant_bytes(qt, valid, M):
+        """Bytes of ``valid`` compressed token rows plus the codebook."""
+        row = M + qt.scales.element_size() + (4 if qt.codes is not None
+                                              else 0)
+        cb = 0 if qt.codebook is None else qt.codebook.numel() * 4
+        return valid * row + cb
+
+    def dequant_ops(qt, valid, M):
+        return valid * M * (2 if qt.codes is not None else 1)
+
+    q_formats = [("int8", 0), ("residual", 8), ("residual", 1)]
+    maxsim_q_cases = [("slice", 16, 256, 128, 32, 128),
+                      ("odd", 3, 5, 77, 45, 100)]
+    for fmt, Kc in q_formats:
+        for label, Bq, N, L, T, M in maxsim_q_cases:
+            qt, m = quant_like(Bq * N, L, M, fmt, Kc, dead=(1,))
+            qt, m = corpus_reshape(qt, Bq, N), m.reshape(Bq, N, L)
+            q = unit_rows(gen, (Bq, T, M))
+            got = maxsim_batch_q_cuda(qt, m, q)
+            tag = f"maxsim_q {fmt} Kc={Kc} {label}"
+            err = check_close(tag, got, maxsim_batch_plain(qt, m, q))
+            if not torch.equal(got, maxsim_batch_cuda(dequantize(qt), m, q)):
+                fail(f"{tag}: differs from maxsim on the dequantized corpus")
+            if float(got[0, 1].max()) != NEG:
+                fail(f"{tag}: an all-masked doc must give -3e38")
+            print(f"kernel {tag} B={Bq} N={N} L={L} T={T} M={M}: "
+                  f"max_abs_err={err:.3g} ok (rtol={RTOL}, atol={ATOL}); "
+                  "== maxsim(dequantize) bit for bit", flush=True)
+            if label != "slice" or Kc == 1:
+                continue
+            valid = int(m.sum())
+            nbytes = (quant_bytes(qt, valid, M) + m.numel() + q.numel() * 4
+                      + got.numel() * 4)
+            b_ms, b_by = bound(nbytes, 2 * T * M * valid
+                               + dequant_ops(qt, valid, M))
+            rec = dict(name="maxsim_q", route="cuda",
+                       source="src/repro_torch/kernels/csrc/maxsim.cu",
+                       replaces="src/repro/kernels/maxsim.py:54",
+                       max_abs_err=err,
+                       ms=cuda_ms(lambda: maxsim_batch_q_cuda(qt, m, q)),
+                       plain_ms=cuda_ms(lambda: maxsim_batch_plain(qt, m, q),
+                                        reps=5, inner=3),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            print(f"timing maxsim_q {fmt} {label}: {json.dumps(rec)}",
+                  flush=True)
+            if fmt == "int8":
+                records["maxsim_q"] = rec
+
+    reveal_q_cases = [("round", 128, 8, 128, 128, "random"),
+                      ("init", 4096, 1, 128, 128, "random"),
+                      ("F=1", 1, 8, 128, 128, "random"),
+                      ("odd", 37, 3, 77, 100, "random"),
+                      ("new-none", 128, 8, 128, 128, "none"),
+                      ("G=64", 64, 64, 128, 128, "random")]
+    for fmt, Kc in q_formats:
+        for label, F, G, L, M, fresh in reveal_q_cases:
+            if Kc == 1 and label not in ("odd", "round"):
+                continue
+            qt, m = quant_like(D, L, M, fmt, Kc, dead=(3, 5))
+            dense = dequantize(qt)
+            qtab = unit_rows(gen, (TQ, M))
+            sets = []
+            for _ in range(8):
+                di = torch.randint(0, D, (F,), generator=gen, device="cuda")
+                di[0] = 3                               # an all-masked doc
+                ti = torch.randint(0, TQ, (F, G), generator=gen,
+                                   device="cuda")
+                nm = (torch.rand((F, G), generator=gen, device="cuda") < 0.7
+                      if fresh == "random" else
+                      torch.zeros((F, G), dtype=torch.bool, device="cuda"))
+                sets.append((di, ti, nm))
+            di, ti, nm = sets[0]
+            tag = f"{fmt} Kc={Kc} {label}"
+            got = gather_maxsim_q_cuda(qt, m, qtab, di, ti)
+            err_g = check_close(f"gather_maxsim_q {tag}", got,
+                                gather_maxsim_plain(qt, m, qtab, di, ti))
+            vals, stats = fused_reveal_q_cuda(qt, m, qtab, di, ti, nm)
+            pv, ps = fused_reveal_plain(qt, m, qtab, di, ti, nm)
+            err_v = check_close(f"fused_reveal_q {tag} vals", vals, pv)
+            err_s = check_close(f"fused_reveal_q {tag} stats", stats, ps)
+            if not torch.equal(vals, got):
+                fail(f"{tag}: fused_reveal_q and gather_maxsim_q differ")
+            tv, ts = fused_reveal_cuda(dense, m, qtab, di, ti, nm)
+            if not (torch.equal(vals, tv) and torch.equal(stats, ts)
+                    and torch.equal(got, gather_maxsim_cuda(dense, m, qtab,
+                                                            di, ti))):
+                fail(f"{tag}: a _q kernel differs from its f32 twin on the "
+                     "dequantized corpus")
+            if float(got[0].max()) != NEG:
+                fail(f"{tag}: an all-masked doc must give -3e38")
+            print(f"kernel gather_maxsim_q/fused_reveal_q {tag} F={F} G={G} "
+                  f"L={L} M={M} new={fresh}: max_abs_err vals={err_v:.3g} "
+                  f"stats={err_s:.3g} gather={err_g:.3g} ok (rtol={RTOL}, "
+                  f"atol={ATOL}); fused == gather == f32 twins bit for bit",
+                  flush=True)
+            if label not in ("round", "init") or Kc == 1:
+                continue
+            it = [0]
+
+            def nxt():
+                it[0] += 1
+                return sets[it[0] % len(sets)]
+
+            valid, valid_u, docs_u, toks_u = reveal_reads(sets, m)
+            common = (quant_bytes(qt, valid_u, M) + docs_u * L
+                      + toks_u * M * 4 + F * 8 + F * G * 8)
+            ops = 2 * G * M * valid + dequant_ops(qt, valid_u, M)
+            for kname, fn, plain, extra in (
+                    ("gather_maxsim_q",
+                     lambda: gather_maxsim_q_cuda(qt, m, qtab, *nxt()[:2]),
+                     lambda: gather_maxsim_plain(qt, m, qtab, *nxt()[:2]),
+                     F * G * 4),
+                    ("fused_reveal_q",
+                     lambda: fused_reveal_q_cuda(qt, m, qtab, *nxt()),
+                     lambda: fused_reveal_plain(qt, m, qtab, *nxt()),
+                     F * G + F * G * 4 + F * 12)):
+                b_ms, b_by = bound(common + extra, ops)
+                rec = dict(name=kname, route="cuda",
+                           source="src/repro_torch/kernels/csrc/reveal.cu",
+                           replaces=("src/repro/kernels/gather_maxsim.py:51"
+                                     if kname == "gather_maxsim_q" else
+                                     "src/repro/kernels/reveal.py:92"),
+                           max_abs_err=(err_g if kname == "gather_maxsim_q"
+                                        else max(err_v, err_s)),
+                           ms=cuda_ms(fn), plain_ms=cuda_ms(plain, reps=5,
+                                                            inner=5),
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                print(f"timing {kname} {fmt} {label} F={F} G={G}: "
+                      f"{json.dumps(rec)}", flush=True)
+                if label == "round" and fmt == "int8":
+                    records[kname] = rec
 
     # 4. main path -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -314,35 +506,72 @@ def main() -> int:
     # Where the time goes: one profiled call per flavor and one of stage 1.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    profiled = dict(calls, stage1=None)
-    for label, kw in profiled.items():
+
+    def profiled_line(label, fn, ref_ms, kernel="", launched=()):
+        """Profile one call of ``fn`` and describe its device time against
+        ``ref_ms`` of unprofiled wall time. In a long-lived process a
+        profile drops its first device records, more with every profile
+        taken, so a host pause and PAD spin kernels come first and take
+        that loss; they are left out of the sums. Fails unless some pad
+        record survived (so nothing of ``fn`` was lost at the start) and,
+        where ``kernel`` is given, unless the profile holds one record
+        whose name contains it per launch that ``fn`` made of the kernels
+        named in ``launched``."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            if kw is None:
-                candidates_for(index.doc_embs, index.doc_mask, queries,
-                               kprime=10, max_candidates=MAX_CANDIDATES,
-                               support=(0.0, 1.0))
-            else:
-                serve_queries(index, queries, k=K,
-                              max_candidates=MAX_CANDIDATES, seed=SEED,
-                              device="cuda", **kw)
+            time.sleep(0.05)
+            for _ in range(PAD):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
+            _build.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+        n_launched = sum(_build.LAUNCHES[k] for k in launched)
         # Device-side records only (kernels, copies, sets); CPU ops also
         # carry their kernels' time and would count it twice.
         avg = prof.key_averages()
-        ev = [e for e in avg if e.device_type == DeviceType.CUDA
-              and e.key != "Command Buffer Full"
+        dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+        pad_kept = sum(e.count for e in dev if "spin_kernel" in e.key)
+        ev = [e for e in dev if e.key != "Command Buffer Full"
+              and "spin_kernel" not in e.key
               and e.self_device_time_total > 0]
+        if pad_kept == 0:
+            fail(f"profile {label}: every pad record was lost, so the "
+                 "call's first device records may be too")
+        n_rec = sum(e.count for e in ev if kernel in e.key) if kernel else 0
+        if kernel and n_rec != n_launched:
+            fail(f"profile {label}: {n_rec} records of {kernel} for "
+                 f"{n_launched} launches")
         busy = sum(e.self_device_time_total for e in ev) / 1e3
-        ref_ms = (stage1 if kw is None else wall[label]) * 1e3
         stalls = sum(e.count for e in avg if e.key == "Command Buffer Full")
         top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-        print(f"profile {label}: device busy {busy:.2f} ms in "
-              f"{sum(e.count for e in ev)} device ops, against {ref_ms:.1f} ms "
-              f"of unprofiled wall time (idle share {1 - busy / ref_ms:.3f}); "
-              f"{stalls} launch stalls on a full command buffer; top: "
-              + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f}"
-                          f" ms x{e.count}" for e in top), flush=True)
+        return (f"profile {label}: device busy {busy:.2f} ms in "
+                f"{sum(e.count for e in ev)} device ops, against "
+                f"{ref_ms:.1f} ms of unprofiled wall time (idle share "
+                f"{1 - busy / ref_ms:.3f}); {stalls} launch stalls on a full "
+                f"command buffer; pad records lost {PAD - pad_kept} of {PAD}"
+                + (f"; {kernel} records {n_rec} == launches {n_launched}"
+                   if kernel else "") + "; top: "
+                + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f}"
+                            f" ms x{e.count}" for e in top))
+
+    for label, kw in dict(calls, stage1=None).items():
+        if kw is None:
+            fn = functools.partial(candidates_for, index.doc_embs,
+                                   index.doc_mask, queries, kprime=10,
+                                   max_candidates=MAX_CANDIDATES,
+                                   support=(0.0, 1.0))
+        else:
+            fn = functools.partial(serve_queries, index, queries, k=K,
+                                   max_candidates=MAX_CANDIDATES, seed=SEED,
+                                   device="cuda", **kw)
+        ref_ms = (stage1 if kw is None else wall[label]) * 1e3
+        if kw is None:
+            print(profiled_line(label, fn, ref_ms), flush=True)
+            continue
+        body = "maxsim_kernel" if label == "dense" else "reveal_kernel"
+        print(profiled_line(label, fn, ref_ms, f"{body}<DenseRows",
+                            (kernel_of[label],)), flush=True)
 
     # Dense top-5 equals an exhaustive plain-version top-5 wherever the
     # 5th/6th score gap exceeds 1e-4.
@@ -382,7 +611,109 @@ def main() -> int:
 
     for label, kname in kernel_of.items():
         records[kname]["launches"] = launches[label][kname]
-    order = ("fused_reveal", "maxsim", "gather_maxsim")
+
+    # 5. compressed serving ----------------------------------------------------
+    # The same corpus resident as f32 ("bf16" passthrough of f32 input), int8
+    # and residual (8 centroids, 10 Lloyd iterations, seed 0); every format
+    # reranks phase 4's stage-1 candidates through make_serving_step.
+    corpora, per_doc = {}, {}
+    for label, fmt in (("f32", "bf16"), ("int8", "int8"),
+                       ("residual", "residual")):
+        t = time.perf_counter()
+        corpora[label] = build_corpus(ds.doc_embs, ds.doc_mask,
+                                      corpus_format=fmt, device="cuda")
+        torch.cuda.synchronize()
+        nbytes = corpus_nbytes(corpora[label].embs)
+        per_doc[label] = nbytes / corpora[label].n_docs
+        print(f"corpus {label}: {per_doc[label]:.2f} resident bytes/doc "
+              f"({nbytes / 1e9:.3f} GB; {per_doc['f32'] / per_doc[label]:.3f}"
+              f"x below f32), built in {time.perf_counter() - t:.1f} s",
+              flush=True)
+    if per_doc["f32"] / per_doc["int8"] < 3.5:
+        fail(f"int8 is only {per_doc['f32'] / per_doc['int8']:.3f}x below "
+             "f32 in resident bytes per doc (< 3.5)")
+
+    steps = {"dense": make_serving_step("dense", topk=K),
+             "pooled": make_serving_step("bandit", topk=K, engine="pooled"),
+             "pooled_chain": make_serving_step("bandit", topk=K,
+                                               engine="pooled_chain")}
+    q_kernel_of = {"dense": "maxsim_q", "pooled": "fused_reveal_q",
+                   "pooled_chain": "gather_maxsim_q"}
+    q_launches = dict.fromkeys(q_kernel_of.values(), 0)
+    res5 = {}
+    for fmt, corpus in corpora.items():
+        args = (corpus.embs, corpus.mask, queries, cand.doc_ids, cand.a,
+                cand.b)
+        for label, step in steps.items():
+            call = functools.partial(step, *args, TorchDraws(SEED, "cuda"))
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = call()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t
+            counts = dict(_build.LAUNCHES)
+            runs = []
+            for _ in range(3):
+                call = functools.partial(step, *args,
+                                         TorchDraws(SEED, "cuda"))
+                t = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t)
+            step_ms = statistics.median(runs) * 1e3
+            res5[fmt, label] = [x.cpu().numpy() for x in got]
+            scores, ids, frac, stats = res5[fmt, label]
+            print(f"compressed {fmt} {label}: launches {counts}; first call "
+                  f"{first * 1e3:.1f} ms; rerank step alone (excludes stage "
+                  f"1) median of 3 warm calls {step_ms:.1f} ms per batch of "
+                  f"{nq}; mean reveal_fraction {frac.mean():.4f}; stats "
+                  f"{stats.tolist()}", flush=True)
+            want, other = ((kernel_of[label], q_kernel_of.values())
+                           if fmt == "f32" else
+                           (q_kernel_of[label], kernel_of.values()))
+            rows = "DenseRows" if fmt == "f32" else "QuantRows"
+            body = "maxsim_kernel" if label == "dense" else "reveal_kernel"
+            print(profiled_line(f"compressed {fmt} {label}",
+                                functools.partial(step, *args,
+                                                  TorchDraws(SEED, "cuda")),
+                                step_ms, f"{body}<{rows}", (want,)),
+                  flush=True)
+            if counts[want] == 0 or any(counts[k] for k in other):
+                fail(f"compressed {fmt} {label}: launches {counts}")
+            if fmt != "f32":
+                q_launches[want] += counts[want]
+            if ids.shape != (nq, K) or not np.isfinite(
+                    scores[ids >= 0]).all():
+                fail(f"compressed {fmt} {label}: malformed result")
+
+    def overlap(a, b):
+        return float(overlap_at_k(torch.as_tensor(a),
+                                  torch.as_tensor(b)).mean())
+
+    for fmt in corpora:
+        fused, chain = res5[fmt, "pooled"], res5[fmt, "pooled_chain"]
+        if not (np.array_equal(fused[1], chain[1])
+                and np.array_equal(fused[2], chain[2])):
+            fail(f"compressed {fmt}: fused and chain round bodies disagree")
+        ov = overlap(fused[1], res5[fmt, "dense"][1])
+        ov_f32 = overlap(res5[fmt, "dense"][1], res5["f32", "dense"][1])
+        frac = float(fused[2].mean())
+        print(f"check compressed {fmt}: chain == fused (identical topk_ids "
+              f"and reveal_fraction); bandit overlap@{K} with dense of the "
+              f"same format {ov:.4f} (>= 0.9); dense overlap@{K} with f32 "
+              f"dense {ov_f32:.4f} (>= 0.9); mean reveal_fraction "
+              f"{frac:.4f} (< 1)", flush=True)
+        if ov < 0.9 or ov_f32 < 0.9 or not frac < 1.0:
+            fail(f"compressed {fmt}: fidelity below the bar")
+    print(f"check f32 corpus dense == phase 4 dense ids: "
+          f"{np.array_equal(res5['f32', 'dense'][1], out['dense'].topk_ids)}",
+          flush=True)
+
+    for kname, n in q_launches.items():
+        records[kname]["launches"] = n
+    order = ("fused_reveal", "maxsim", "gather_maxsim", "fused_reveal_q",
+             "maxsim_q", "gather_maxsim_q")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: records[n][k] for k in keys}

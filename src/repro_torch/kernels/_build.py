@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+# The compressed corpus's leading arguments: data, scales, codes, codebook
+# (both None for int8), Kc.
+_QUANT = [_P, _P, _P, _P, _I]
 # C signature of every entry point, by library: (name, argtypes).
 _ENTRY_POINTS = {
     "reveal.cu": (
@@ -43,15 +46,24 @@ _ENTRY_POINTS = {
           _P]),
         ("colbandit_gather_maxsim",
          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P]),
+        ("colbandit_fused_reveal_q",
+         _QUANT + [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
+                   _I, _P]),
+        ("colbandit_gather_maxsim_q",
+         _QUANT + [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I,
+                   _P]),
     ),
     "maxsim.cu": (
         ("colbandit_maxsim",
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        ("colbandit_maxsim_q",
+         _QUANT + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     ),
 }
 
 LAUNCHES: Dict[str, int] = {"maxsim": 0, "fused_reveal": 0,
-                            "gather_maxsim": 0}
+                            "gather_maxsim": 0, "maxsim_q": 0,
+                            "fused_reveal_q": 0, "gather_maxsim_q": 0}
 # Loaded libraries by source name, and the nvcc report of the last build.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -153,3 +165,41 @@ def stream_ptr(device: torch.device) -> int:
 
 
 FLOAT_TYPES = (torch.float32, torch.bfloat16)
+SHARED_MEM_BYTES = 227 * 1024
+
+
+def quant_args(kernel: str, qt) -> Tuple[list, int]:
+    """Validate the leaves of a ``QuantTokens`` operand of a ``_q`` kernel:
+    data int8 (..., L, M), scales (..., L) bf16 or f32, and for the
+    residual format codes (..., L) int32 plus a (Kc, M) f32 codebook, all
+    contiguous. Returns the C arguments (data, scales, codes, codebook, Kc)
+    and whether the scales are bf16. The caller checks devices."""
+    data, scales, codes, codebook = qt
+    require(data.dtype == torch.int8 and data.dim() >= 2, kernel,
+            f"data must be an int8 (..., L, M) tensor, got {data.dtype} "
+            f"{tuple(data.shape)}")
+    require(scales.dtype in (torch.bfloat16, torch.float32)
+            and tuple(scales.shape) == tuple(data.shape[:-1]), kernel,
+            f"scales must be bfloat16/float32 shaped {tuple(data.shape[:-1])}"
+            f", got {scales.dtype} {tuple(scales.shape)}")
+    require((codes is None) == (codebook is None), kernel,
+            "codes and codebook come together (residual) or not at all "
+            "(int8)")
+    leaves = [data, scales]
+    kc = 0
+    if codes is not None:
+        require(codes.dtype == torch.int32
+                and tuple(codes.shape) == tuple(data.shape[:-1]), kernel,
+                f"codes must be int32 shaped {tuple(data.shape[:-1])}, got "
+                f"{codes.dtype} {tuple(codes.shape)}")
+        require(codebook.dtype == torch.float32 and codebook.dim() == 2
+                and codebook.shape[0] >= 1
+                and codebook.shape[1] == data.shape[-1], kernel,
+                f"codebook must be float32 (Kc, M={data.shape[-1]}), got "
+                f"{codebook.dtype} {tuple(codebook.shape)}")
+        leaves += [codes, codebook]
+        kc = codebook.shape[0]
+    require(all(t.is_contiguous() for t in leaves), kernel,
+            "quantized leaves must be contiguous")
+    ptrs = [t.data_ptr() for t in leaves] + [None] * (4 - len(leaves))
+    return ptrs + [kc], int(scales.dtype == torch.bfloat16)

@@ -19,6 +19,91 @@ __device__ __forceinline__ float nan_max(float acc, float x) {
   return (x > acc || x != x) ? x : acc;
 }
 
+// Row loaders: how a kernel body reads element m of corpus token row r
+// (r = doc * L + l). A body is templated on its loader, so one body serves
+// every corpus kind. `row(r, cb_s)` returns a view of one row; `cb_s` is
+// the codebook staged in shared memory (unused by the dense and int8
+// loaders). `kCodebook` says whether the body must stage a codebook.
+//
+// DenseRows: a float32 or bf16 corpus (D, L, M).
+template <typename TE>
+struct DenseRows {
+  static constexpr bool kCodebook = false;
+  const TE* E;
+  int M;
+  struct View {
+    const TE* p;
+    __device__ __forceinline__ float operator()(int m) const {
+      return to_f32(p[m]);
+    }
+  };
+  __device__ __forceinline__ View row(int64_t r, const float*) const {
+    return View{E + r * M};
+  }
+};
+
+// QuantRows: an int8 corpus, data (D, L, M) int8 and scales (D, L) of TS
+// (bf16 or f32); with kResidual also codes (D, L) int32 and a (Kc, M) f32
+// codebook. Element m of row r is data * scale, plus codebook[code][m] for
+// the residual format, each step rounded on its own (__fmul_rn,
+// __fadd_rn: no FMA contraction), as kernels/quant.py::dequant_block does
+// in PyTorch. A dequantized element is therefore bit-equal to the plain
+// version's, and a body on QuantRows equals the same body on DenseRows
+// over the dequantized corpus bit for bit. Codes outside [0, Kc) are
+// clamped, as an index into the codebook must stay in bounds.
+template <typename TS, bool kResidual>
+struct QuantRows {
+  static constexpr bool kCodebook = kResidual;
+  const int8_t* data;
+  const TS* scales;
+  const int32_t* codes;
+  const float* codebook;  // global (Kc, M); the body stages it in cb_s
+  int M, Kc;
+  struct View {
+    const int8_t* p;
+    float s;
+    const float* c;  // cb_s + code * M (residual only)
+    __device__ __forceinline__ float operator()(int m) const {
+      const float v = __fmul_rn(static_cast<float>(p[m]), s);
+      if constexpr (kResidual) {
+        return __fadd_rn(v, c[m]);
+      } else {
+        return v;
+      }
+    }
+  };
+  __device__ __forceinline__ View row(int64_t r, const float* cb_s) const {
+    const float* c = nullptr;
+    if constexpr (kResidual) {
+      int k = codes[r];
+      k = k < 0 ? 0 : (k >= Kc ? Kc - 1 : k);
+      c = cb_s + (int64_t)k * M;
+    }
+    return View{data + r * M, to_f32(scales[r]), c};
+  }
+};
+
+// Floats of shared memory a loader's codebook takes.
+template <typename Rows>
+__host__ __device__ inline size_t codebook_floats(const Rows& rows) {
+  if constexpr (Rows::kCodebook) {
+    return (size_t)rows.Kc * rows.M;
+  } else {
+    return 0;
+  }
+}
+
+// Copy the loader's codebook into shared memory (all threads of a block;
+// the caller synchronises before the first read).
+template <typename Rows>
+__device__ __forceinline__ void stage_codebook(const Rows& rows, float* cb_s,
+                                               int tid, int n_threads) {
+  if constexpr (Rows::kCodebook) {
+    const int n = rows.Kc * rows.M;
+    for (int i = tid; i < n; i += n_threads) cb_s[i] = rows.codebook[i];
+  }
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where needed.
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes) {

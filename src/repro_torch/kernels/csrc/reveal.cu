@@ -1,29 +1,39 @@
 // Gathered MaxSim reveal for the pooled Col-Bandit frontier (sm_90a).
 //
-// One body, two entry points:
-//   colbandit_fused_reveal   replaces src/repro/kernels/reveal.py
-//                            fused_reveal / _fused_reveal_kernel
-//   colbandit_gather_maxsim  replaces src/repro/kernels/gather_maxsim.py
-//                            gather_maxsim / _gather_maxsim_kernel
+// One body, four entry points:
+//   colbandit_fused_reveal     replaces src/repro/kernels/reveal.py
+//                              fused_reveal / _fused_reveal_kernel
+//   colbandit_gather_maxsim    replaces src/repro/kernels/gather_maxsim.py
+//                              gather_maxsim / _gather_maxsim_kernel
+//   colbandit_fused_reveal_q   replaces src/repro/kernels/reveal.py
+//                              fused_reveal / _fused_reveal_q_kernel
+//   colbandit_gather_maxsim_q  replaces src/repro/kernels/gather_maxsim.py
+//                              gather_maxsim / _gather_maxsim_q_kernel
+// The _q entry points read a compressed corpus (int8 rows with a per-row
+// scale, optionally a centroid id into a shared codebook) through
+// common.cuh's QuantRows loader; the others read float32/bf16 rows.
 //
 // vals[f, g] = max_{l valid} <E[doc_idx[f], l], Q[tok_idx[f, g]]>, -3e38 for
-// an all-masked doc; the fused entry also writes stats[f] =
+// an all-masked doc; the fused entries also write stats[f] =
 // [sum new, sum new*v, sum (new?v:0)*v] over new_mask[f].
 //
 // Bound: bytes. A frontier row reads its doc's valid (L, M) tokens once and
-// does 2*G*M flops per token, G/2 flop per f32 byte: below the ~20
-// flop/byte ridge of the f32 CUDA cores for G < 40 (the serving path runs
-// G = 1 for the init reveal and G = 8 per round). Design: one block per
-// frontier row reads its own doc_idx[f] (the TPU kernel's scalar prefetch) and gathers its G query rows
-// into shared memory, so no (F, L, M) gathered copy ever reaches device
-// memory. Each warp streams whole doc tokens, coalesced, through a private
-// shared-memory row; lanes split M and a xor-shuffle tree finishes the dot,
-// so one cell's value never depends on its frontier row, its g slot or G.
-// The two entry points share that code, hence the chain and fused round
-// bodies see bit-identical values. Thread 0 sums the stats serially in
-// ascending g with no FMA contraction: the plain PyTorch version
-// (kernels/reveal.py::reveal_stats) repeats that order exactly.
-// Out-of-range indices are clamped, as an XLA gather does.
+// does 2*G*M flops per token: G/2 flop per f32 byte, 2*G per int8 byte,
+// below the ~20 flop/byte ridge of the f32 CUDA cores for the serving
+// path's G = 1 (init reveal) and G = 8 (rounds). Design: one block per
+// frontier row reads its own doc_idx[f] (the TPU kernel's scalar prefetch)
+// and gathers its G query rows into shared memory, so no (F, L, M) gathered
+// copy ever reaches device memory. Each warp streams whole doc tokens,
+// coalesced, through a private shared-memory row; on a compressed corpus the
+// loader dequantizes the row on the way in (only int8 bytes, the row's
+// scale and code leave device memory; the residual codebook is staged in
+// shared memory once per block). Lanes split M and a xor-shuffle tree
+// finishes the dot, so one cell's value never depends on its frontier row,
+// its g slot or G. All entry points share that code, hence the chain and
+// fused round bodies see bit-identical values on every corpus kind. Thread
+// 0 sums the stats serially in ascending g with no FMA contraction: the
+// plain PyTorch version (kernels/reveal.py::reveal_stats) repeats that order
+// exactly. Out-of-range indices are clamped, as an XLA gather does.
 #include "common.cuh"
 
 namespace {
@@ -31,9 +41,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename TE, typename TQ, bool kStats>
+template <typename Rows, typename TQ, bool kStats>
 __global__ void __launch_bounds__(kThreads)
-reveal_kernel(const TE* __restrict__ E, const uint8_t* __restrict__ mask,
+reveal_kernel(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qt, const int64_t* __restrict__ doc_idx,
               const int64_t* __restrict__ tok_idx,
               const uint8_t* __restrict__ new_mask, float* __restrict__ vals,
@@ -44,6 +54,7 @@ reveal_kernel(const TE* __restrict__ E, const uint8_t* __restrict__ mask,
   float* e_s = q_s + (size_t)G * M;         // (kWarps, M) one doc row per warp
   float* w_max = e_s + (size_t)kWarps * M;  // (kWarps, G) running max per warp
   float* v_s = w_max + kWarps * G;          // (G,) finished values
+  float* cb_s = v_s + G;                    // (Kc, M) codebook, residual only
 
   const int64_t f = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -57,16 +68,16 @@ reveal_kernel(const TE* __restrict__ E, const uint8_t* __restrict__ mask,
     q_s[i] = to_f32(Qt[t * M + m]);
   }
   for (int i = tid; i < kWarps * G; i += kThreads) w_max[i] = COLBANDIT_NEG;
+  stage_codebook(rows, cb_s, tid, kThreads);
   __syncthreads();
 
-  const TE* e_doc = E + d * (int64_t)L * M;
   const uint8_t* m_doc = mask + d * (int64_t)L;
   float* e_w = e_s + warp * M;
   float* w_row = w_max + warp * G;
   for (int l = warp; l < L; l += kWarps) {
     if (!m_doc[l]) continue;  // warp-uniform: masked tokens are never read
-    const TE* e_l = e_doc + (int64_t)l * M;
-    for (int m = lane; m < M; m += 32) e_w[m] = to_f32(e_l[m]);
+    const auto e_l = rows.row(d * L + l, cb_s);
+    for (int m = lane; m < M; m += 32) e_w[m] = e_l(m);
     __syncwarp();
     for (int g = 0; g < G; ++g) {
       const float* q_g = q_s + g * M;
@@ -108,44 +119,69 @@ reveal_kernel(const TE* __restrict__ E, const uint8_t* __restrict__ mask,
   }
 }
 
-template <typename TE, typename TQ, bool kStats>
-int launch(const void* E, const uint8_t* mask, const void* Q,
-           const int64_t* doc_idx, const int64_t* tok_idx,
-           const uint8_t* new_mask, float* vals, float* stats, int F, int G,
-           int L, int M, long long D, long long n_tok, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)G * M + (size_t)kWarps * M + (size_t)kWarps * G + G) *
-      sizeof(float);
-  auto kernel = reveal_kernel<TE, TQ, kStats>;
+// Operands of one launch, whatever the corpus kind.
+struct Args {
+  const uint8_t* mask;
+  const void* Q;
+  const int64_t* doc_idx;
+  const int64_t* tok_idx;
+  const uint8_t* new_mask;
+  float* vals;
+  float* stats;
+  int F, G, L, M;
+  long long D, n_tok;
+  cudaStream_t stream;
+};
+
+template <typename Rows, typename TQ, bool kStats>
+int launch(const Rows& rows, const Args& a) {
+  const size_t smem = ((size_t)a.G * a.M + (size_t)kWarps * a.M +
+                       (size_t)kWarps * a.G + a.G + codebook_floats(rows)) *
+                      sizeof(float);
+  auto kernel = reveal_kernel<Rows, TQ, kStats>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<F, kThreads, smem, stream>>>(
-      static_cast<const TE*>(E), mask, static_cast<const TQ*>(Q), doc_idx,
-      tok_idx, new_mask, vals, stats, G, L, M, D, n_tok);
+  kernel<<<a.F, kThreads, smem, a.stream>>>(
+      rows, a.mask, static_cast<const TQ*>(a.Q), a.doc_idx, a.tok_idx,
+      a.new_mask, a.vals, a.stats, a.G, a.L, a.M, a.D, a.n_tok);
   return (int)cudaGetLastError();
 }
 
+template <typename Rows, bool kStats>
+int by_query(const Rows& rows, const Args& a, int q_bf16) {
+  if (q_bf16) return launch<Rows, __nv_bfloat16, kStats>(rows, a);
+  return launch<Rows, float, kStats>(rows, a);
+}
+
 template <bool kStats>
-int dispatch(const void* E, const uint8_t* mask, const void* Q,
-             const int64_t* doc_idx, const int64_t* tok_idx,
-             const uint8_t* new_mask, float* vals, float* stats, int F, int G,
-             int L, int M, long long D, long long n_tok, int e_bf16, int q_bf16,
-             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (e_bf16 && q_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16, kStats>(
-        E, mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M, D,
-        n_tok, s);
+int dense(const void* E, const Args& a, int e_bf16, int q_bf16) {
   if (e_bf16)
-    return launch<__nv_bfloat16, float, kStats>(
-        E, mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M, D,
-        n_tok, s);
-  if (q_bf16)
-    return launch<float, __nv_bfloat16, kStats>(
-        E, mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M, D,
-        n_tok, s);
-  return launch<float, float, kStats>(E, mask, Q, doc_idx, tok_idx, new_mask,
-                                      vals, stats, F, G, L, M, D, n_tok, s);
+    return by_query<DenseRows<__nv_bfloat16>, kStats>(
+        {static_cast<const __nv_bfloat16*>(E), a.M}, a, q_bf16);
+  return by_query<DenseRows<float>, kStats>(
+      {static_cast<const float*>(E), a.M}, a, q_bf16);
+}
+
+template <typename TS, bool kStats>
+int quant_scales(const int8_t* data, const void* scales, const int32_t* codes,
+                 const float* codebook, int Kc, const Args& a, int q_bf16) {
+  const TS* s = static_cast<const TS*>(scales);
+  if (codes != nullptr)
+    return by_query<QuantRows<TS, true>, kStats>(
+        {data, s, codes, codebook, a.M, Kc}, a, q_bf16);
+  return by_query<QuantRows<TS, false>, kStats>(
+      {data, s, nullptr, nullptr, a.M, 0}, a, q_bf16);
+}
+
+template <bool kStats>
+int quant(const int8_t* data, const void* scales, const int32_t* codes,
+          const float* codebook, int Kc, const Args& a, int s_bf16,
+          int q_bf16) {
+  if (s_bf16)
+    return quant_scales<__nv_bfloat16, kStats>(data, scales, codes, codebook,
+                                               Kc, a, q_bf16);
+  return quant_scales<float, kStats>(data, scales, codes, codebook, Kc, a,
+                                     q_bf16);
 }
 
 }  // namespace
@@ -157,8 +193,9 @@ extern "C" int colbandit_fused_reveal(const void* E, const uint8_t* mask,
                                       float* stats, int F, int G, int L, int M,
                                       long long D, long long n_tok, int e_bf16,
                                       int q_bf16, void* stream) {
-  return dispatch<true>(E, mask, Q, doc_idx, tok_idx, new_mask, vals, stats,
-                        F, G, L, M, D, n_tok, e_bf16, q_bf16, stream);
+  const Args a{mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M,
+               D, n_tok, static_cast<cudaStream_t>(stream)};
+  return dense<true>(E, a, e_bf16, q_bf16);
 }
 
 extern "C" int colbandit_gather_maxsim(const void* E, const uint8_t* mask,
@@ -167,6 +204,30 @@ extern "C" int colbandit_gather_maxsim(const void* E, const uint8_t* mask,
                                        int F, int G, int L, int M, long long D,
                                        long long n_tok, int e_bf16, int q_bf16,
                                        void* stream) {
-  return dispatch<false>(E, mask, Q, doc_idx, tok_idx, nullptr, vals, nullptr,
-                         F, G, L, M, D, n_tok, e_bf16, q_bf16, stream);
+  const Args a{mask, Q, doc_idx, tok_idx, nullptr, vals, nullptr, F, G, L, M,
+               D, n_tok, static_cast<cudaStream_t>(stream)};
+  return dense<false>(E, a, e_bf16, q_bf16);
+}
+
+// codes and codebook are nullptr for the int8 format (Kc ignored).
+extern "C" int colbandit_fused_reveal_q(
+    const int8_t* data, const void* scales, const int32_t* codes,
+    const float* codebook, int Kc, const uint8_t* mask, const void* Q,
+    const int64_t* doc_idx, const int64_t* tok_idx, const uint8_t* new_mask,
+    float* vals, float* stats, int F, int G, int L, int M, long long D,
+    long long n_tok, int s_bf16, int q_bf16, void* stream) {
+  const Args a{mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M,
+               D, n_tok, static_cast<cudaStream_t>(stream)};
+  return quant<true>(data, scales, codes, codebook, Kc, a, s_bf16, q_bf16);
+}
+
+extern "C" int colbandit_gather_maxsim_q(
+    const int8_t* data, const void* scales, const int32_t* codes,
+    const float* codebook, int Kc, const uint8_t* mask, const void* Q,
+    const int64_t* doc_idx, const int64_t* tok_idx, float* vals, int F, int G,
+    int L, int M, long long D, long long n_tok, int s_bf16, int q_bf16,
+    void* stream) {
+  const Args a{mask, Q, doc_idx, tok_idx, nullptr, vals, nullptr, F, G, L, M,
+               D, n_tok, static_cast<cudaStream_t>(stream)};
+  return quant<false>(data, scales, codes, codebook, Kc, a, s_bf16, q_bf16);
 }

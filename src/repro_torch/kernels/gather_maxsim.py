@@ -9,7 +9,13 @@ bit-identical values. Bound on the H100: device-memory bytes, as for the
 fused reveal; the JAX version gathered in XLA first, this one gathers
 inside the kernel and never builds the (B, L, M) copy.
 
-``gather_maxsim_plain`` is the plain PyTorch version
+``colbandit_gather_maxsim_q`` (same source, same body) replaces the
+quantized TPU kernel ``_gather_maxsim_q_kernel``: on a ``QuantTokens``
+corpus only int8 bytes, the row's scale and code are gathered, and each
+row is dequantized in shared memory before its dot. Bound on the H100:
+bytes (2*G flop per int8 byte, under the ridge for G <= 8).
+
+``gather_maxsim_plain`` is the plain PyTorch version of both
 (``kernels/ref.py``'s ``gather_maxsim_ref``).
 """
 from __future__ import annotations
@@ -17,16 +23,33 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.quant import QuantTokens, corpus_index, dense_rows
 
 _NEG = -3e38
 
 
 def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
-                          doc_idx, tok_idx, *extra) -> torch.device:
-    """Validate the shared operands of the two gathered-MaxSim kernels."""
-    dev = _build.require_cuda(name, doc_embs, doc_tok_mask, queries, doc_idx,
+                          doc_idx, tok_idx, *extra):
+    """Validate the shared operands of the gathered-MaxSim kernels;
+    ``doc_embs`` is a float tensor or a ``QuantTokens``. Returns the
+    device and the C arguments of the corpus: ([E], e_bf16) for a float
+    tensor, ([data, scales, codes, codebook, Kc], s_bf16) for a
+    ``QuantTokens``."""
+    quant = isinstance(doc_embs, QuantTokens)
+    leaves = ([a for a in doc_embs if a is not None] if quant
+              else [doc_embs])
+    dev = _build.require_cuda(name, *leaves, doc_tok_mask, queries, doc_idx,
                               tok_idx, *extra)
-    _build.require(doc_embs.dim() == 3 and doc_tok_mask.dim() == 2
+    if quant:
+        corpus_args, e_bf16 = _build.quant_args(name, doc_embs)
+        kc = corpus_args[-1]
+    else:
+        _build.require(doc_embs.dtype in _build.FLOAT_TYPES
+                       and doc_embs.is_contiguous(), name,
+                       "doc_embs must be contiguous float32/bfloat16")
+        corpus_args = [doc_embs.data_ptr()]
+        e_bf16, kc = int(doc_embs.dtype == torch.bfloat16), 0
+    _build.require(len(doc_embs.shape) == 3 and doc_tok_mask.dim() == 2
                    and queries.dim() == 2 and doc_idx.dim() == 1
                    and tok_idx.dim() == 2, name,
                    "expected doc_embs (D,L,M), doc_tok_mask (D,L), queries "
@@ -40,21 +63,22 @@ def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
                    f"{tuple(doc_idx.shape)}, {tuple(tok_idx.shape)}")
     _build.require(D > 0 and queries.shape[0] > 0, name,
                    "empty corpus or query table")
-    _build.require(doc_embs.dtype in _build.FLOAT_TYPES
-                   and queries.dtype in _build.FLOAT_TYPES
+    _build.require(queries.dtype in _build.FLOAT_TYPES
                    and doc_tok_mask.dtype == torch.bool
                    and doc_idx.dtype == torch.int64
                    and tok_idx.dtype == torch.int64, name,
-                   "embeddings must be float32/bfloat16, the mask bool, "
+                   "queries must be float32/bfloat16, the mask bool, "
                    "the indices int64")
     _build.require(all(t.is_contiguous() for t in (
-        doc_embs, doc_tok_mask, queries, doc_idx, tok_idx)), name,
+        doc_tok_mask, queries, doc_idx, tok_idx)), name,
         "operands must be contiguous")
     G = tok_idx.shape[1]
-    smem = (G * M + 8 * M + 8 * G + G) * 4
-    _build.require(doc_idx.shape[0] < 2 ** 31 and smem <= 227 * 1024, name,
-                   f"G={G}, M={M} need {smem} bytes of shared memory")
-    return dev
+    smem = (G * M + 8 * M + 8 * G + G + kc * M) * 4
+    _build.require(doc_idx.shape[0] < 2 ** 31
+                   and smem <= _build.SHARED_MEM_BYTES, name,
+                   f"G={G}, M={M}, Kc={kc} need {smem} bytes of shared "
+                   "memory")
+    return dev, corpus_args, e_bf16
 
 
 def gather_maxsim_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
@@ -62,31 +86,50 @@ def gather_maxsim_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                        tok_idx: torch.Tensor) -> torch.Tensor:
     """doc_embs (D, L, M), doc_tok_mask (D, L) bool, queries (TQ, M),
     doc_idx (F,) i64, tok_idx (F, G) i64 -> (F, G) f32, on the card."""
-    name = "gather_maxsim"
-    dev = check_gather_operands(name, doc_embs, doc_tok_mask, queries,
-                                doc_idx, tok_idx)
+    _build.require(isinstance(doc_embs, torch.Tensor), "gather_maxsim",
+                   "a QuantTokens corpus goes to gather_maxsim_q_cuda")
+    return _launch("gather_maxsim", doc_embs, doc_tok_mask, queries, doc_idx,
+                   tok_idx)
+
+
+def gather_maxsim_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
+                         queries: torch.Tensor, doc_idx: torch.Tensor,
+                         tok_idx: torch.Tensor) -> torch.Tensor:
+    """``gather_maxsim_cuda`` on a compressed corpus: doc_embs a
+    ``QuantTokens`` with a (D, L, M) int8 payload."""
+    _build.require(isinstance(doc_embs, QuantTokens), "gather_maxsim_q",
+                   "doc_embs must be a QuantTokens")
+    return _launch("gather_maxsim_q", doc_embs, doc_tok_mask, queries,
+                   doc_idx, tok_idx)
+
+
+def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx):
+    dev, corpus_args, e_bf16 = check_gather_operands(
+        name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx)
     F, G = tok_idx.shape
     D, L, M = doc_embs.shape
     out = torch.empty((F, G), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib = _build.library("reveal.cu")
+    fn = getattr(lib, "colbandit_" + name)
     with torch.cuda.device(dev):
-        status = lib.colbandit_gather_maxsim(
-            doc_embs.data_ptr(), doc_tok_mask.data_ptr(), queries.data_ptr(),
+        status = fn(
+            *corpus_args, doc_tok_mask.data_ptr(), queries.data_ptr(),
             doc_idx.data_ptr(), tok_idx.data_ptr(), out.data_ptr(), F, G, L,
-            M, D, queries.shape[0], int(doc_embs.dtype == torch.bfloat16),
+            M, D, queries.shape[0], e_bf16,
             int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return out
 
 
-def gather_maxsim_plain(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
+def gather_maxsim_plain(doc_embs, doc_tok_mask: torch.Tensor,
                         queries: torch.Tensor, doc_idx: torch.Tensor,
                         tok_idx: torch.Tensor) -> torch.Tensor:
     """H[doc_idx[s], tok_idx[s, g]] for the selected cells only
-    (``ref.gather_maxsim_ref``)."""
-    e = doc_embs[doc_idx].to(torch.float32)              # (F, L, M)
+    (``ref.gather_maxsim_ref``); ``doc_embs`` may be a ``QuantTokens``,
+    gathered leaf-wise and then dequantized."""
+    e = dense_rows(corpus_index(doc_embs, doc_idx))      # (F, L, M)
     m = doc_tok_mask[doc_idx]                            # (F, L)
     q = queries[tok_idx].to(torch.float32)               # (F, G, M)
     sims = torch.einsum("blm,bgm->blg", e, q)

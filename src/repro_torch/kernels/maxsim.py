@@ -8,17 +8,51 @@ f32 issue rate about equally at T = 32, M = 128 (16 flop per doc byte
 against a ridge of ~20); the design notes are in the source. The
 (B, N, L, T) similarity tensor is never built.
 
-``maxsim_batch_plain`` is the plain PyTorch version (``kernels/ref.py``'s
-``maxsim_batch_ref``: an L-chunked running max, again without the
-(B, N, L, T) tensor). Tests and ``chip_smoke.py`` compare the two.
+``colbandit_maxsim_q`` (same source, same body) replaces the quantized TPU
+kernel ``_maxsim_q_kernel``: it reads a ``QuantTokens`` corpus (int8 rows,
+per-row scales, optional centroid codes into a codebook shared across the
+batch) and dequantizes each doc tile as it fills shared memory. Bound on
+the H100: operations (~63 flop per int8 byte at the serving shape, above
+the ridge). Its values equal ``colbandit_maxsim`` on the dequantized
+corpus bit for bit.
+
+``maxsim_batch_plain`` is the plain PyTorch version of both
+(``kernels/ref.py``'s ``maxsim_batch_ref``: an L-chunked running max that
+dequantizes one chunk at a time, again without the (B, N, L, T) tensor).
+Tests and ``chip_smoke.py`` compare the kernels with it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.quant import QuantTokens, dense_rows, dequant_block
 
 _NEG = -3e38
+
+
+def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_extra=0):
+    _build.require(len(doc_embs.shape) == 4 and queries.dim() == 3
+                   and doc_tok_mask.dim() == 3, name,
+                   "expected doc_embs (B,N,L,M), doc_tok_mask (B,N,L), "
+                   "queries (B,T,M)")
+    B, N, L, M = doc_embs.shape
+    _build.require(tuple(doc_tok_mask.shape) == (B, N, L)
+                   and queries.shape[0] == B and queries.shape[2] == M,
+                   name, f"shape mismatch: {tuple(doc_embs.shape)}, "
+                   f"{tuple(doc_tok_mask.shape)}, {tuple(queries.shape)}")
+    _build.require(queries.dtype in _build.FLOAT_TYPES
+                   and doc_tok_mask.dtype == torch.bool, name,
+                   "queries must be float32/bfloat16, the mask bool")
+    _build.require(queries.is_contiguous() and doc_tok_mask.is_contiguous(),
+                   name, "operands must be contiguous")
+    smem = (M * 64 + 256 + smem_extra) * 4
+    _build.require(B <= 65535 and N < 2 ** 31
+                   and smem <= _build.SHARED_MEM_BYTES, name,
+                   f"unsupported sizes B={B}, N={N}, M={M} ({smem} bytes of "
+                   "shared memory)")
+    return torch.empty((B, N, queries.shape[1]), dtype=torch.float32,
+                       device=queries.device)
 
 
 def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
@@ -27,66 +61,87 @@ def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     bool and queries (B, T, M), on the card. f32 or bf16 inputs, f32
     accumulation; -3e38 for an all-masked doc."""
     name = "maxsim"
+    _build.require(isinstance(doc_embs, torch.Tensor), name,
+                   "a QuantTokens corpus goes to maxsim_batch_q_cuda")
     dev = _build.require_cuda(name, doc_embs, doc_tok_mask, queries)
-    _build.require(doc_embs.dim() == 4 and queries.dim() == 3
-                   and doc_tok_mask.dim() == 3, name,
-                   "expected doc_embs (B,N,L,M), doc_tok_mask (B,N,L), "
-                   "queries (B,T,M)")
-    B, N, L, M = doc_embs.shape
-    T = queries.shape[1]
-    _build.require(tuple(doc_tok_mask.shape) == (B, N, L)
-                   and queries.shape[0] == B and queries.shape[2] == M,
-                   name, f"shape mismatch: {tuple(doc_embs.shape)}, "
-                   f"{tuple(doc_tok_mask.shape)}, {tuple(queries.shape)}")
+    out = _check_maxsim(name, doc_embs, doc_tok_mask, queries)
     _build.require(doc_embs.dtype in _build.FLOAT_TYPES
-                   and queries.dtype in _build.FLOAT_TYPES
-                   and doc_tok_mask.dtype == torch.bool, name,
-                   "embeddings must be float32/bfloat16, the mask bool")
-    _build.require(doc_embs.is_contiguous() and queries.is_contiguous()
-                   and doc_tok_mask.is_contiguous(), name,
-                   "operands must be contiguous")
-    _build.require(B <= 65535 and N < 2 ** 31 and M * 64 * 4 + 1024
-                   <= 227 * 1024, name, f"unsupported sizes B={B}, N={N}, "
-                   f"M={M}")
-    out = torch.empty((B, N, T), dtype=torch.float32, device=dev)
+                   and doc_embs.is_contiguous(), name,
+                   "doc_embs must be contiguous float32/bfloat16")
     if out.numel() == 0:
         return out
+    B, N, L, M = doc_embs.shape
     lib = _build.library("maxsim.cu")
     with torch.cuda.device(dev):
         status = lib.colbandit_maxsim(
             doc_embs.data_ptr(), doc_tok_mask.data_ptr(), queries.data_ptr(),
-            out.data_ptr(), B, N, L, M, T,
+            out.data_ptr(), B, N, L, M, queries.shape[1],
             int(doc_embs.dtype == torch.bfloat16),
             int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return out
 
 
-def maxsim_plain(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
+def maxsim_batch_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
+                        queries: torch.Tensor) -> torch.Tensor:
+    """``maxsim_batch_cuda`` on a compressed corpus: doc_embs a
+    ``QuantTokens`` with a (B, N, L, M) int8 payload, (B, N, L) scales (and
+    codes), and a shared (Kc, M) codebook for the residual format."""
+    name = "maxsim_q"
+    _build.require(isinstance(doc_embs, QuantTokens), name,
+                   "doc_embs must be a QuantTokens")
+    dev = _build.require_cuda(name, *(a for a in doc_embs if a is not None),
+                              doc_tok_mask, queries)
+    qargs, s_bf16 = _build.quant_args(name, doc_embs)
+    M = doc_embs.shape[-1]
+    out = _check_maxsim(name, doc_embs, doc_tok_mask, queries,
+                        smem_extra=qargs[-1] * M)
+    if out.numel() == 0:
+        return out
+    B, N, L, _ = doc_embs.shape
+    lib = _build.library("maxsim.cu")
+    with torch.cuda.device(dev):
+        status = lib.colbandit_maxsim_q(
+            *qargs, doc_tok_mask.data_ptr(), queries.data_ptr(),
+            out.data_ptr(), B, N, L, M, queries.shape[1], s_bf16,
+            int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check_launch(status, name)
+    return out
+
+
+def maxsim_plain(doc_embs, doc_tok_mask: torch.Tensor,
                  queries: torch.Tensor) -> torch.Tensor:
     """Dense MaxSim matrix (Eq. 4): (N, L, M), (N, L), (T, M) -> (N, T) f32,
-    H[i, t] = max_j <e_ij, q_t> over valid j (``ref.maxsim_ref``)."""
-    sims = torch.einsum("nlm,tm->nlt", doc_embs.to(torch.float32),
+    H[i, t] = max_j <e_ij, q_t> over valid j (``ref.maxsim_ref``).
+    ``doc_embs`` may be a ``QuantTokens``."""
+    sims = torch.einsum("nlm,tm->nlt", dense_rows(doc_embs),
                         queries.to(torch.float32))
     sims = torch.where(doc_tok_mask[:, :, None], sims, _NEG)
     return sims.max(dim=1).values
 
 
-def maxsim_batch_plain(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
+def maxsim_batch_plain(doc_embs, doc_tok_mask: torch.Tensor,
                        queries: torch.Tensor, *,
                        block_l: int = 64) -> torch.Tensor:
     """Per-query-batched MaxSim streamed over document tokens
     (``ref.maxsim_batch_ref``): (B, N, L, M), (B, N, L), (B, T, M) ->
-    (B, N, T). The peak temporary is (B, N, block_l, T)."""
+    (B, N, T). The peak temporary is (B, N, block_l, T); a ``QuantTokens``
+    corpus is dequantized one L-chunk at a time."""
     Bq, N, L, _ = doc_embs.shape
     T = queries.shape[1]
     q = queries.to(torch.float32)
     h = torch.full((Bq, N, T), _NEG, dtype=torch.float32,
-                   device=doc_embs.device)
+                   device=doc_tok_mask.device)
     for l0 in range(0, L, max(block_l, 1)):
-        e_c = doc_embs[:, :, l0:l0 + block_l].to(torch.float32)
-        m_c = doc_tok_mask[:, :, l0:l0 + block_l]
+        sl = slice(l0, l0 + block_l)
+        if isinstance(doc_embs, QuantTokens):
+            e_c = dequant_block(
+                doc_embs.data[:, :, sl], doc_embs.scales[:, :, sl],
+                None if doc_embs.codes is None else doc_embs.codes[:, :, sl],
+                doc_embs.codebook)
+        else:
+            e_c = doc_embs[:, :, sl].to(torch.float32)
         sims = torch.einsum("bnlm,btm->bnlt", e_c, q)
-        sims = torch.where(m_c[..., None], sims, _NEG)
+        sims = torch.where(doc_tok_mask[:, :, sl, None], sims, _NEG)
         h = torch.maximum(h, sims.max(dim=2).values)
     return h

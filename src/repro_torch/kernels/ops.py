@@ -5,7 +5,10 @@ CPU tensors take each kernel's plain PyTorch version, CUDA tensors launch
 the hand-written kernel (or raise; nothing falls back). The CUDA kernels
 mask ragged L and M themselves, so none of the TPU padding exists here.
 Embeddings and queries may be float32 or bfloat16; every op accumulates
-in float32 and returns float32.
+in float32 and returns float32. ``doc_embs`` may also be a compressed corpus
+(``kernels.quant.QuantTokens``): dispatch then reads the device of every
+leaf, a CPU corpus takes the plain version (which dequantizes), a CUDA one
+launches the kernel's ``_q`` entry point, which dequantizes in the kernel.
 """
 from __future__ import annotations
 
@@ -14,14 +17,19 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
-    gather_maxsim_plain
+    gather_maxsim_plain, gather_maxsim_q_cuda
 from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
-    maxsim_batch_plain, maxsim_plain
-from repro_torch.kernels.reveal import fused_reveal_cuda, fused_reveal_plain
+    maxsim_batch_plain, maxsim_batch_q_cuda, maxsim_plain
+from repro_torch.kernels.quant import QuantTokens, corpus_leaves, \
+    corpus_reshape
+from repro_torch.kernels.reveal import fused_reveal_cuda, \
+    fused_reveal_plain, fused_reveal_q_cuda
 
 
-def _on_cuda(op: str, *tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
+def _on_cuda(op: str, doc_embs, *tensors: torch.Tensor) -> bool:
+    """Whether an op runs on the card: every leaf of the corpus operand and
+    every other operand on CUDA (True) or on the CPU (False)."""
+    kinds = {t.device.type for t in (*corpus_leaves(doc_embs), *tensors)}
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"}:
@@ -39,9 +47,8 @@ def maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     """Dense MaxSim matrix H (N, T) from (N, L, M), (N, L), (T, M)."""
     if not _on_cuda("maxsim_op", doc_embs, doc_tok_mask, queries):
         return maxsim_plain(doc_embs, doc_tok_mask, queries)
-    return maxsim_batch_cuda(doc_embs.contiguous()[None],
-                             doc_tok_mask.contiguous()[None],
-                             queries.contiguous()[None])[0]
+    return maxsim_batch_op(corpus_reshape(doc_embs, 1, doc_embs.shape[0]),
+                           doc_tok_mask[None], queries[None])[0]
 
 
 def maxsim_batch_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
@@ -51,8 +58,10 @@ def maxsim_batch_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     (B, N, L, T) similarity tensor; all-masked docs give -3e38."""
     if not _on_cuda("maxsim_batch_op", doc_embs, doc_tok_mask, queries):
         return maxsim_batch_plain(doc_embs, doc_tok_mask, queries)
-    return maxsim_batch_cuda(doc_embs.contiguous(), doc_tok_mask.contiguous(),
-                             queries.contiguous())
+    quant = isinstance(doc_embs, QuantTokens)
+    kernel = maxsim_batch_q_cuda if quant else maxsim_batch_cuda
+    return kernel(doc_embs.contiguous(), doc_tok_mask.contiguous(),
+                  queries.contiguous())
 
 
 def gather_maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
@@ -71,9 +80,10 @@ def gather_maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                     doc_idx, tok_idx):
         return gather_maxsim_plain(doc_embs, doc_tok_mask, queries, doc_idx,
                                    tok_idx)
-    return gather_maxsim_cuda(doc_embs.contiguous(), doc_tok_mask.contiguous(),
-                              queries.contiguous(), _idx(doc_idx),
-                              _idx(tok_idx))
+    quant = isinstance(doc_embs, QuantTokens)
+    kernel = gather_maxsim_q_cuda if quant else gather_maxsim_cuda
+    return kernel(doc_embs.contiguous(), doc_tok_mask.contiguous(),
+                  queries.contiguous(), _idx(doc_idx), _idx(tok_idx))
 
 
 def fused_reveal_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
@@ -97,6 +107,8 @@ def fused_reveal_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                     doc_idx, tok_idx, new_mask):
         return fused_reveal_plain(doc_embs, doc_tok_mask, queries, doc_idx,
                                   tok_idx, new_mask)
-    return fused_reveal_cuda(doc_embs.contiguous(), doc_tok_mask.contiguous(),
-                             queries.contiguous(), _idx(doc_idx),
-                             _idx(tok_idx), new_mask.contiguous())
+    quant = isinstance(doc_embs, QuantTokens)
+    kernel = fused_reveal_q_cuda if quant else fused_reveal_cuda
+    return kernel(doc_embs.contiguous(), doc_tok_mask.contiguous(),
+                  queries.contiguous(), _idx(doc_idx), _idx(tok_idx),
+                  new_mask.contiguous())

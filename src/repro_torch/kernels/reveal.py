@@ -12,9 +12,18 @@ serving path's G = 1 and 8); one block per row reads only its own doc's
 valid tokens. The TPU layout's 8-lane stats padding is dropped: stats are
 (F, 3).
 
-``fused_reveal_plain`` is the plain PyTorch version (``kernels/ref.py``'s
-``fused_reveal_ref``); its statistics come from :func:`reveal_stats`, which
-sums in the kernel's own order.
+``colbandit_fused_reveal_q`` (same source, same body) replaces the
+quantized TPU kernel ``_fused_reveal_q_kernel``: on a ``QuantTokens``
+corpus the block reads only int8 bytes, the row's scale and code, and
+dequantizes each row in shared memory before its dot (the residual
+codebook is staged in shared memory once per block). Bound on the H100:
+bytes (2*G flop per int8 byte). Its values equal ``colbandit_fused_reveal``
+on the dequantized corpus, and ``colbandit_gather_maxsim_q`` on the same
+corpus, bit for bit.
+
+``fused_reveal_plain`` is the plain PyTorch version of both
+(``kernels/ref.py``'s ``fused_reveal_ref``); its statistics come from
+:func:`reveal_stats`, which sums in the kernel's own order.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_maxsim import check_gather_operands, \
     gather_maxsim_plain
+from repro_torch.kernels.quant import QuantTokens
 
 
 def reveal_stats(vals: torch.Tensor, new_mask: torch.Tensor) -> torch.Tensor:
@@ -58,9 +68,28 @@ def fused_reveal_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     """doc_embs (D, L, M), doc_tok_mask (D, L) bool, queries (TQ, M),
     doc_idx (F,) i64, tok_idx (F, G) i64, new_mask (F, G) bool ->
     (vals (F, G) f32, stats (F, 3) f32), on the card."""
-    name = "fused_reveal"
-    dev = check_gather_operands(name, doc_embs, doc_tok_mask, queries,
-                                doc_idx, tok_idx, new_mask)
+    _build.require(isinstance(doc_embs, torch.Tensor), "fused_reveal",
+                   "a QuantTokens corpus goes to fused_reveal_q_cuda")
+    return _launch("fused_reveal", doc_embs, doc_tok_mask, queries, doc_idx,
+                   tok_idx, new_mask)
+
+
+def fused_reveal_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
+                        queries: torch.Tensor, doc_idx: torch.Tensor,
+                        tok_idx: torch.Tensor, new_mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_reveal_cuda`` on a compressed corpus: doc_embs a
+    ``QuantTokens`` with a (D, L, M) int8 payload."""
+    _build.require(isinstance(doc_embs, QuantTokens), "fused_reveal_q",
+                   "doc_embs must be a QuantTokens")
+    return _launch("fused_reveal_q", doc_embs, doc_tok_mask, queries,
+                   doc_idx, tok_idx, new_mask)
+
+
+def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx,
+            new_mask):
+    dev, corpus_args, e_bf16 = check_gather_operands(
+        name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx, new_mask)
     _build.require(tuple(new_mask.shape) == tuple(tok_idx.shape)
                    and new_mask.dtype == torch.bool
                    and new_mask.is_contiguous(), name,
@@ -73,23 +102,25 @@ def fused_reveal_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     if F == 0:
         return vals, stats
     lib = _build.library("reveal.cu")
+    fn = getattr(lib, "colbandit_" + name)
     with torch.cuda.device(dev):
-        status = lib.colbandit_fused_reveal(
-            doc_embs.data_ptr(), doc_tok_mask.data_ptr(), queries.data_ptr(),
+        status = fn(
+            *corpus_args, doc_tok_mask.data_ptr(), queries.data_ptr(),
             doc_idx.data_ptr(), tok_idx.data_ptr(), new_mask.data_ptr(),
             vals.data_ptr(), stats.data_ptr(), F, G, L, M, D,
-            queries.shape[0], int(doc_embs.dtype == torch.bfloat16),
-            int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
+            queries.shape[0], e_bf16, int(queries.dtype == torch.bfloat16),
+            _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return vals, stats
 
 
-def fused_reveal_plain(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
+def fused_reveal_plain(doc_embs, doc_tok_mask: torch.Tensor,
                        queries: torch.Tensor, doc_idx: torch.Tensor,
                        tok_idx: torch.Tensor, new_mask: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch fused reveal (``ref.fused_reveal_ref``): gathered
-    MaxSim values plus :func:`reveal_stats` over the fresh cells."""
+    MaxSim values plus :func:`reveal_stats` over the fresh cells.
+    ``doc_embs`` may be a ``QuantTokens``."""
     vals = gather_maxsim_plain(doc_embs, doc_tok_mask, queries, doc_idx,
                                tok_idx)
     return vals, reveal_stats(vals, new_mask)

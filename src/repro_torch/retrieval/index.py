@@ -8,10 +8,14 @@ arrays, so one numpy corpus feeds both this package and the JAX one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.retrieval.corpus import gather_tokens
+
+__all__ = ["TokenIndex", "build_index", "from_numpy", "from_arrays",
+           "gather_tokens"]
 
 
 @dataclasses.dataclass
@@ -19,18 +23,6 @@ class TokenIndex:
     doc_embs: torch.Tensor     # (C, L, M) f32
     doc_mask: torch.Tensor     # (C, L) bool
     doc_lens: torch.Tensor     # (C,) i64
-
-
-def gather_tokens(embs: torch.Tensor, mask: torch.Tensor,
-                  doc_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather candidate token embeddings by doc id (``retrieval/corpus.py``
-    ``gather_tokens``): embs (C, L, M), mask (C, L), doc_ids (..., N) with
-    -1 padding -> (..., N, L, M) embeddings + (..., N, L) mask, all-False
-    for -1 ids."""
-    safe = torch.clamp(doc_ids, min=0)
-    docs = embs[safe]
-    dmask = mask[safe] & (doc_ids >= 0)[..., None]
-    return docs, dmask
 
 
 def build_index(doc_embs, doc_mask, doc_lens, *,

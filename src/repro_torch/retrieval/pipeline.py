@@ -15,7 +15,8 @@ import torch
 from repro_torch.configs.base import BanditConfig
 from repro_torch.core.frontier import DrawSource, TorchDraws
 from repro_torch.retrieval.ann import CandidateSet, generate_candidates
-from repro_torch.retrieval.service import (rerank_bandit_step,
+from repro_torch.retrieval.service import (_require_dense,
+                                           rerank_bandit_step,
                                            rerank_dense_step)
 
 
@@ -57,16 +58,27 @@ def serve_queries(
     """The batched pipeline entry point: stage-1 kNN + Eq. 15 bounds feeding
     ``service.rerank_dense_step`` / ``rerank_bandit_step``.
 
-    ``index`` holds ``doc_embs``/``doc_mask`` tensors (a
-    ``retrieval.index.TokenIndex``) and must already live on ``device``. ``draws`` replaces the default ``TorchDraws(seed)`` (the
-    parity tests replay the JAX package's key chain through it)."""
+    ``index`` is duck-typed: a ``retrieval.index.TokenIndex``
+    (``doc_embs``/``doc_mask``), a ``retrieval.corpus.Corpus`` facade, or
+    any object exposing ``embs``/``mask``; it must already live on
+    ``device``. Stage 1 reads raw rows, so a quantized corpus raises
+    ``ValueError`` (serve one through ``service.make_serving_step`` with
+    stage-1 candidates from a dense corpus). ``draws`` replaces the default
+    ``TorchDraws(seed)`` (the parity tests replay the JAX package's key
+    chain through it)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    embs, mask = index.doc_embs, index.doc_mask
-    if embs.device != dev or mask.device != dev:
-        raise ValueError(f"serve_queries: the index is on {embs.device}, "
-                         f"the run on {dev}; build it with device={device!r}")
+    embs = getattr(index, "embs", None)
+    mask = getattr(index, "mask", None)
+    if embs is None:
+        embs, mask = index.doc_embs, index.doc_mask
+    _require_dense(embs, "serve_queries' stage-1 kNN")
+    where = {embs.device, mask.device}
+    if where != {dev}:
+        raise ValueError(f"serve_queries: the index is on "
+                         f"{sorted(map(str, where))}, the run on {dev}; "
+                         f"build it with device={device!r}")
     bandit = bandit or BanditConfig(k=k)
     if not isinstance(queries, torch.Tensor):
         queries = np.asarray(queries, np.float32)

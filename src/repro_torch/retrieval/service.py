@@ -11,6 +11,8 @@ rerank_bandit_step
     ``"pooled_fused"`` run the fused round body (``fused_reveal`` kernel),
     ``"pooled_chain"`` the chain oracle (``gather_maxsim`` kernel).
 
+``corpus_embs`` may be a compressed corpus (``kernels.quant.QuantTokens``):
+the candidates are gathered leaf-wise and the kernels dequantize in place.
 Both return ``(topk_scores (B, K), topk_global_ids (B, K), reveal_frac
 (B,), stats (4,))`` with stats = [frontier occupancy, total rounds,
 lockstep waste, quarantined docs]. Where the JAX steps take a PRNG key,
@@ -28,16 +30,29 @@ from repro_torch.core.batched import BatchedConfig
 from repro_torch.core.frontier import DrawSource, run_pooled_bandit
 from repro_torch.kernels.ops import (fused_reveal_op, gather_maxsim_op,
                                      maxsim_batch_op)
-from repro_torch.retrieval.index import gather_tokens
+from repro_torch.kernels.quant import QuantTokens, corpus_reshape
+from repro_torch.retrieval.corpus import gather_tokens
 
 _NEG = -3e38
 ENGINES = {"pooled": True, "pooled_fused": True, "pooled_chain": False}
 
 
 def gather_candidates(corpus_embs, corpus_mask, cand_ids):
-    """corpus_embs (C, L, M), corpus_mask (C, L), cand_ids (B, N) with -1
-    padding -> docs (B, N, L, M), dmask (B, N, L) (all-False for padding)."""
+    """corpus_embs (C, L, M) or a ``QuantTokens``, corpus_mask (C, L),
+    cand_ids (B, N) with -1 padding -> docs (B, N, L, M), dmask (B, N, L)
+    (all-False for padding); a quantized corpus is gathered leaf-wise."""
     return gather_tokens(corpus_embs, corpus_mask, cand_ids)
+
+
+def _require_dense(corpus_embs, where: str):
+    """Loud failure where the math needs raw embedding rows (the stage-1
+    kNN of ``serve_queries``)."""
+    if isinstance(corpus_embs, QuantTokens):
+        raise ValueError(
+            f"{where} requires a dense (bf16/f32) corpus; got a "
+            f"{corpus_embs.fmt!r}-quantized one. Rebuild the corpus with "
+            "corpus_format='bf16', or rerank given candidates on it with "
+            "make_serving_step('dense' | 'bandit').")
 
 
 def _local_maxsim_scores(doc_embs, doc_mask, queries):
@@ -77,7 +92,7 @@ def _pooled_rerank(docs, dmask, queries, cand_ids, a, b, draws,
     (B*T, M), so every round reveals all queries' blocks in one launch."""
     Bq, N, L, M = docs.shape
     T = queries.shape[1]
-    stacked = docs.reshape(Bq * N, L, M)
+    stacked = corpus_reshape(docs, Bq * N)    # quantized: leaf-wise reshape
     stacked_mask = dmask.reshape(Bq * N, L)
     flat_q = queries.reshape(Bq * T, M)
 

@@ -7,21 +7,36 @@ False. Run on the card with::
 
 Tolerance rtol=1e-5, atol=1e-6 for float32 and bf16 inputs alike (both are
 upcast exactly and accumulated in float32; only the summation order of the
-M-term dot products differs). This file imports no JAX.
+M-term dot products differs). A ``_q`` kernel on a compressed corpus also
+equals its float32 twin on the dequantized corpus bit for bit (one body,
+bit-equal rows). This file imports no JAX.
+
+The ``_q`` tests encode unit-norm doc token rows and score unit-norm query
+rows, as the served corpus does: ColBERT and ``data/synthetic.py``
+L2-normalize every token. Then sum_m |e_m q_m| is at most about 1 for
+every cell (3 for the row coded Kc - 1), so a different summation order
+moves a cell by about 1e-8, far inside atol, whatever the seed, while a
+wrong term moves it by ~1/M.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import BanditConfig
+from repro_torch.core.frontier import TorchDraws
 from repro_torch.data.synthetic import make_retrieval_dataset
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
-    gather_maxsim_plain
-from repro_torch.kernels.maxsim import maxsim_batch_cuda, maxsim_batch_plain
-from repro_torch.kernels.reveal import fused_reveal_cuda, fused_reveal_plain
+    gather_maxsim_plain, gather_maxsim_q_cuda
+from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
+    maxsim_batch_plain, maxsim_batch_q_cuda
+from repro_torch.kernels.quant import corpus_reshape, dequantize, quantize
+from repro_torch.kernels.reveal import fused_reveal_cuda, \
+    fused_reveal_plain, fused_reveal_q_cuda
+from repro_torch.retrieval.corpus import build_corpus
 from repro_torch.retrieval.index import from_numpy
-from repro_torch.retrieval.pipeline import serve_queries
+from repro_torch.retrieval.pipeline import candidates_for, serve_queries
+from repro_torch.retrieval.service import make_serving_step
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -99,3 +114,125 @@ def test_serving_counts_launches_and_bodies_agree(card):
     serve_queries(idx, ds.queries, k=5, flavor="dense", max_candidates=64,
                   device=card)
     assert _build.LAUNCHES["maxsim"] == 1
+
+
+# ---------------------------------------------------------------------------
+# compressed corpora: the _q kernels
+# ---------------------------------------------------------------------------
+
+def _unit(x):
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def _quant_docs(gen, D, L, M, fmt, Kc=8, scale_dtype=torch.bfloat16):
+    """A quantized corpus with an all-masked doc 0, a token row whose
+    encoded row is all zero (scale 0: a zero row, or for the residual
+    format a row on a centroid) and, for the residual format, a row coded
+    Kc - 1."""
+    e, m = _docs(gen, D, L, M, torch.float32)
+    e = _unit(e)                             # unit rows, as a served corpus
+    e[1, 0] = 0.0
+    cb = None
+    if fmt == "residual":
+        cb = _unit(torch.randn((Kc, M), generator=gen, device="cuda"))
+        e[1, 0] = cb[0]
+        e[2, 0] = cb[Kc - 1] * 3.0
+    qt = quantize(e, fmt, codebook=cb, scale_dtype=scale_dtype)
+    assert float(qt.scales[1, 0]) == 0.0
+    return qt, m
+
+
+QFMTS = [("int8", 8, torch.bfloat16), ("residual", 8, torch.bfloat16),
+         ("residual", 1, torch.bfloat16), ("residual", 8, torch.float32)]
+
+
+@pytest.mark.parametrize("fmt,Kc,sdt", QFMTS)
+@pytest.mark.parametrize("B,N,L,T,M", [(4, 32, 128, 32, 128),
+                                       (3, 5, 77, 45, 100)])
+def test_maxsim_q_matches_plain_and_its_f32_twin(card, fmt, Kc, sdt, B, N,
+                                                 L, T, M):
+    gen = torch.Generator(device=card).manual_seed(3)
+    qt, m = _quant_docs(gen, B * N, L, M, fmt, Kc, sdt)
+    qt, m = corpus_reshape(qt, B, N), m.reshape(B, N, L)
+    q = _unit(torch.randn((B, T, M), generator=gen, device=card))
+    got = maxsim_batch_q_cuda(qt, m, q)
+    torch.testing.assert_close(got, maxsim_batch_plain(qt, m, q), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(got, maxsim_batch_cuda(dequantize(qt), m, q))
+    assert float(got[0, 0].max()) == float(np.float32(-3e38))
+    if fmt == "residual":
+        assert int(qt.codes[0, 2, 0]) == Kc - 1
+
+
+@pytest.mark.parametrize("fmt,Kc,sdt", QFMTS)
+@pytest.mark.parametrize("F,G,L,M", [(128, 8, 128, 128), (512, 1, 128, 128),
+                                     (1, 64, 77, 100)])
+def test_reveal_q_kernels_match_plain_and_their_f32_twins(card, fmt, Kc,
+                                                          sdt, F, G, L, M):
+    gen = torch.Generator(device=card).manual_seed(4)
+    D, TQ = 256, 64
+    qt, m = _quant_docs(gen, D, L, M, fmt, Kc, sdt)
+    q = _unit(torch.randn((TQ, M), generator=gen, device=card))
+    di = torch.randint(0, D, (F,), generator=gen, device=card)
+    di[0] = 0
+    ti = torch.randint(0, TQ, (F, G), generator=gen, device=card)
+    nm = torch.rand((F, G), generator=gen, device=card) < 0.5
+    vals = gather_maxsim_q_cuda(qt, m, q, di, ti)
+    torch.testing.assert_close(vals, gather_maxsim_plain(qt, m, q, di, ti),
+                               rtol=RTOL, atol=ATOL)
+    fv, fs = fused_reveal_q_cuda(qt, m, q, di, ti, nm)
+    pv, ps = fused_reveal_plain(qt, m, q, di, ti, nm)
+    assert torch.equal(fv, vals)
+    torch.testing.assert_close(fs, ps, rtol=RTOL, atol=ATOL)
+    dense = dequantize(qt)
+    assert torch.equal(vals, gather_maxsim_cuda(dense, m, q, di, ti))
+    tv, ts = fused_reveal_cuda(dense, m, q, di, ti, nm)
+    assert torch.equal(fv, tv) and torch.equal(fs, ts)
+
+
+def test_q_wrappers_raise_on_malformed_operands(card):
+    gen = torch.Generator(device=card).manual_seed(5)
+    qt, m = _quant_docs(gen, 8, 16, 32, "residual")
+    q = torch.randn((4, 32), generator=gen, device=card)
+    di = torch.zeros((2,), dtype=torch.int64, device=card)
+    ti = torch.zeros((2, 2), dtype=torch.int64, device=card)
+    for bad, match in (
+            (qt._replace(data=qt.data.float()), "int8"),
+            (qt._replace(scales=qt.scales.half()), "scales"),
+            (qt._replace(codes=qt.codes.long()), "int32"),
+            (qt._replace(codebook=None), "come together"),
+            (qt._replace(codebook=qt.codebook.cpu()), "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            gather_maxsim_q_cuda(bad, m, q, di, ti)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = qt._replace(codebook=torch.zeros((2048, 32), device=card))
+        gather_maxsim_q_cuda(big, m, q, di, ti)
+    with pytest.raises(ValueError, match="QuantTokens"):
+        maxsim_batch_cuda(corpus_reshape(qt, 1, 8), m[None], q[None])
+
+
+@pytest.mark.parametrize("fmt", ["int8", "residual"])
+def test_compressed_serving_launches_the_q_kernels(card, fmt):
+    ds = make_retrieval_dataset(n_docs=256, n_queries=4, doc_len=32,
+                                min_doc_len=8, query_len=16, dim=64, seed=6)
+    idx = from_numpy(ds.doc_embs, ds.doc_mask, ds.doc_lens, device=card)
+    q = torch.as_tensor(ds.queries, device=card)
+    cand = candidates_for(idx.doc_embs, idx.doc_mask, q, kprime=10,
+                          max_candidates=64, support=(0.0, 1.0))
+    corpus = build_corpus(ds.doc_embs, ds.doc_mask, corpus_format=fmt,
+                          device=card)
+    args = (corpus.embs, corpus.mask, q, cand.doc_ids, cand.a, cand.b)
+    out = {}
+    for engine, kernel in (("pooled", "fused_reveal_q"),
+                           ("pooled_chain", "gather_maxsim_q")):
+        _build.reset_launches()
+        out[engine] = make_serving_step("bandit", topk=5, engine=engine)(
+            *args, TorchDraws(0, card))
+        assert _build.LAUNCHES[kernel] > 0
+        assert _build.LAUNCHES["fused_reveal"] == 0
+        assert _build.LAUNCHES["gather_maxsim"] == 0
+    for g, w in zip(out["pooled"], out["pooled_chain"]):
+        assert torch.equal(g, w)
+    _build.reset_launches()
+    make_serving_step("dense", topk=5)(*args)
+    assert _build.LAUNCHES["maxsim_q"] == 1 and _build.LAUNCHES["maxsim"] == 0
