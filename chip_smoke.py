@@ -19,7 +19,12 @@ Phases, in order:
      int8 and residual (8 centroids); ``make_serving_step`` dense and
      bandit (fused and chain) rerank phase 4's stage-1 candidates on each,
      with launch counts, resident bytes per doc, rerank-step times, a
-     profiled call per step and the fidelity checks.
+     profiled call per step and the fidelity checks;
+  6. tile-masked scoring: (a) ``masked_maxsim_op`` on each query's
+     candidate slab of phase 4 (256 docs, a seeded tile mask at density
+     0.4), checked against the plain version; (b) one bulk launch over the
+     resident 65,536-doc f32, int8 and residual corpora against query 0 at
+     tile densities 0, 0.1, 0.4 and 1, timed beside the dense kernel.
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -79,6 +84,15 @@ def cuda_ms(fn, reps: int = 7, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def demangle(name: str) -> str:
+    """A kernel's C++ name (``c++filt`` where the toolchain has it)."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return name
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     both = torch.isfinite(got) & torch.isfinite(want)
     if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
@@ -124,6 +138,9 @@ def main() -> int:
     from repro_torch.core.metrics import overlap_at_k
     from repro_torch.data.synthetic import make_retrieval_dataset
     from repro_torch.kernels import _build
+    from repro_torch.kernels.masked_maxsim import masked_maxsim_cuda, \
+        masked_maxsim_plain, masked_maxsim_q_cuda
+    from repro_torch.kernels.ops import masked_maxsim_op
     from repro_torch.core.frontier import TorchDraws
     from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
         gather_maxsim_plain, gather_maxsim_q_cuda
@@ -157,9 +174,17 @@ def main() -> int:
     secs = _build.build()
     print(f"build: {secs:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
     for src, log in _build.BUILD_LOG.items():
+        # ptxas -v: "Function properties for <name>", then the stack/spill
+        # line, then "Used N registers"; one line per kernel instantiation.
+        fn, spill = "?", ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"  ptxas {src}: {demangle(fn)}: {spill}; "
+                      f"{line.split(':', 1)[-1].strip()}")
 
     # 3. kernels against their plain versions ---------------------------------
     gen = torch.Generator(device="cuda")
@@ -445,6 +470,72 @@ def main() -> int:
                 if label == "round" and fmt == "int8":
                     records[kname] = rec
 
+    # 3c. the tile-masked kernels, in every format: against the plain version
+    # (same tolerance) and against where(tile, maxsim twin, 0) bit for bit.
+    # Docs 1 and N - 1 are all-masked; the random masks make doc 1's tiles
+    # all active (-3e38) and doc N - 1's all inactive (0).
+    masked_err = {"masked_maxsim": 0.0, "masked_maxsim_q": 0.0}
+
+    def tile_mask(N, T, bn, bt, density):
+        return torch.rand((-(-N // bn), -(-T // bt)), generator=gen,
+                          device="cuda") < density
+
+    def tile_full(tm, bn, bt, N, T):
+        return tm.repeat_interleave(bn, 0).repeat_interleave(bt, 1)[:N, :T]
+
+    def check_masked(tag, e, m, q, tm, bn, bt, got, twin=None):
+        """Hold a masked kernel's output to the plain version and to its
+        maxsim twin (recomputed unless given); returns the max error."""
+        N, T = got.shape
+        kname = ("masked_maxsim" if isinstance(e, torch.Tensor)
+                 else "masked_maxsim_q")
+        err = check_close(tag, got, masked_maxsim_plain(e, m, q, tm, bn, bt))
+        if twin is None:
+            twin_fn = (maxsim_batch_cuda if isinstance(e, torch.Tensor)
+                       else maxsim_batch_q_cuda)
+            twin = twin_fn(corpus_reshape(e, 1, N), m[None], q[None])[0]
+        if not torch.equal(got, torch.where(tile_full(tm, bn, bt, N, T),
+                                            twin, 0.0)):
+            fail(f"{tag}: differs from where(tile, maxsim twin, 0)")
+        masked_err[kname] = max(masked_err[kname], err)
+        return err
+
+    masked_cases = [("slab", 256, 128, 32, 128, 8, "random"),
+                    ("odd", 5, 77, 19, 100, 4, "random"),
+                    ("none", 256, 128, 32, 128, 8, "none"),
+                    ("all", 256, 128, 32, 128, 8, "all")]
+    for fmt, Kc in [("f32", 0), ("bf16", 0)] + q_formats:
+        for label, N, L, T, M, bn, tiles in masked_cases:
+            dead = (1, N - 1)
+            if fmt in ("f32", "bf16"):
+                dt = torch.bfloat16 if fmt == "bf16" else torch.float32
+                e, m = corpus_like(gen, N, L, M, dt, min(32, L), dead)
+                q = unit_rows(gen, (T, M)).to(dt)
+                kernel = masked_maxsim_cuda
+            else:
+                e, m = quant_like(N, L, M, fmt, Kc, dead)
+                q = unit_rows(gen, (T, M))
+                kernel = masked_maxsim_q_cuda
+            tm = tile_mask(N, T, bn, bn, 0.4 if tiles == "random"
+                           else float(tiles == "all"))
+            if tiles == "random":
+                tm[0], tm[(N - 1) // bn] = True, False
+            got = kernel(e, m, q, tm, bn, bn)
+            tag = f"{kernel.__name__[:-5]} {fmt} Kc={Kc} {label}"
+            err = check_masked(tag, e, m, q, tm, bn, bn, got)
+            if tiles != "none" and not (got[1] == NEG).all():
+                fail(f"{tag}: an all-masked doc in an active tile must give "
+                     "-3e38")
+            if tiles != "all" and got[N - 1].any():
+                fail(f"{tag}: an all-masked doc in an inactive tile must "
+                     "give 0")
+            if tiles == "none" and got.any():
+                fail(f"{tag}: all tiles inactive must give all zeros")
+            print(f"kernel {tag} N={N} L={L} T={T} M={M} bn=bt={bn} tiles="
+                  f"{tiles} ({int(tm.sum())} of {tm.numel()} active): "
+                  f"max_abs_err={err:.3g} ok (rtol={RTOL}, atol={ATOL}); "
+                  "== where(tile, maxsim twin, 0) bit for bit", flush=True)
+
     # 4. main path -------------------------------------------------------------
     t0 = time.perf_counter()
     ds = make_retrieval_dataset(**CORPUS, seed=SEED)
@@ -712,8 +803,141 @@ def main() -> int:
 
     for kname, n in q_launches.items():
         records[kname]["launches"] = n
+
+    # 6. tile-masked scoring ---------------------------------------------------
+    # Tile grid bn = bt = 8 (the op's default); seeded random tile masks.
+    BN = 8
+
+    def masked_bound(e, m, q, tm):
+        """Bytes: valid tokens, masks and sidecars of the docs with an
+        active tile, the query, the tile mask and the output. Flops: 2 M
+        (valid length) per active cell plus the dequant of the rows read."""
+        N, L, M = e.shape
+        full = tile_full(tm, BN, BN, N, q.shape[0])
+        doc_on = full.any(1)
+        lens = m.sum(1)
+        valid = int(lens[doc_on].sum())
+        flops = 2 * M * int((lens * full.sum(1)).sum())
+        if isinstance(e, torch.Tensor):
+            nbytes = valid * M * e.element_size()
+        else:
+            nbytes = quant_bytes(e, valid, M) if valid else 0
+            flops += dequant_ops(e, valid, M)
+        nbytes += (int(doc_on.sum()) * L + q.numel() * q.element_size()
+                   + tm.numel() + full.numel() * 4)
+        return nbytes, flops, float(doc_on.float().mean())
+
+    # (a) the entry point per query, on phase 4's candidate slabs.
+    n_cand = docs.shape[1]
+    slabs = [(docs[b].contiguous(), dmask[b].contiguous(),
+              queries[b].contiguous(), tile_mask(n_cand, 32, BN, BN, 0.4))
+             for b in range(nq)]
+    _build.reset_launches()
+    got_a = [masked_maxsim_op(*s_, block_n=BN, block_t=BN) for s_ in slabs]
+    torch.cuda.synchronize()
+    launches_a = dict(_build.LAUNCHES)
+    if launches_a["masked_maxsim"] != nq or sum(launches_a.values()) != nq:
+        fail(f"phase 6a: launches {launches_a}, want {nq} masked_maxsim")
+    twins = maxsim_batch_cuda(docs.contiguous(), dmask.contiguous(),
+                              queries)
+    err_a = max(check_masked(f"phase 6a query {b}", *slabs[b], BN, BN,
+                             got_a[b], twin=twins[b]) for b in range(nq))
+    it = [0]
+
+    def nxt_slab():
+        it[0] += 1
+        return slabs[it[0] % nq]
+
+    sums = [masked_bound(*s_[:3], s_[3]) for s_ in slabs]
+    b_ms, b_by = bound(statistics.mean(x[0] for x in sums),
+                       statistics.mean(x[1] for x in sums))
+    records["masked_maxsim"] = dict(
+        name="masked_maxsim", route="cuda",
+        source="src/repro_torch/kernels/csrc/maxsim.cu",
+        replaces="src/repro/kernels/masked_maxsim.py:97", max_abs_err=err_a,
+        ms=cuda_ms(lambda: masked_maxsim_cuda(*nxt_slab(), BN, BN)),
+        plain_ms=cuda_ms(lambda: masked_maxsim_plain(*nxt_slab(), BN, BN),
+                         reps=5, inner=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    def pass_a():
+        for s_ in slabs:
+            masked_maxsim_op(*s_, block_n=BN, block_t=BN)
+
+    runs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        pass_a()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+    wall_a = statistics.median(runs) * 1e3
+    print(f"phase 6a: {nq} calls of masked_maxsim_op in {wall_a:.3f} ms of "
+          f"wall time (median of 3), {wall_a / nq:.4f} ms per call", flush=True)
+    print(profiled_line("phase 6a", pass_a, wall_a, "masked_maxsim<DenseRows",
+                        ("masked_maxsim",)), flush=True)
+    print(f"phase 6a: launches {launches_a}; {nq} slabs N={n_cand} "
+          f"L=128 T=32 M=128 bn=bt={BN} density 0.4 (docs with an active "
+          f"tile {statistics.mean(x[2] for x in sums):.4f}); max_abs_err "
+          f"{err_a:.3g} ok; == where(tile, maxsim twin, 0) bit for bit; "
+          f"{json.dumps(records['masked_maxsim'])}", flush=True)
+
+    # (b) one bulk launch over each resident corpus against query 0.
+    q0 = queries[0].contiguous()
+    bulk = {"f32": (index.doc_embs, index.doc_mask),
+            "int8": (corpora["int8"].embs, corpora["int8"].mask),
+            "residual": (corpora["residual"].embs, corpora["residual"].mask)}
+    n_docs = index.doc_embs.shape[0]
+    densities = (0.0, 0.1, 0.4, 1.0)
+    bulk_tm = {d: tile_mask(n_docs, 32, BN, BN, d) for d in densities}
+    _build.reset_launches()
+    got_b = {(fmt, d): masked_maxsim_op(e, m, q0, bulk_tm[d], block_n=BN,
+                                        block_t=BN)
+             for fmt, (e, m) in bulk.items() for d in densities}
+    torch.cuda.synchronize()
+    launches_b = dict(_build.LAUNCHES)
+    if (launches_b["masked_maxsim"] != 4 or launches_b["masked_maxsim_q"] != 8
+            or sum(launches_b.values()) != 12):
+        fail(f"phase 6b: launches {launches_b}")
+    for fmt, (e, m) in bulk.items():
+        quant = fmt != "f32"
+        kernel = masked_maxsim_q_cuda if quant else masked_maxsim_cuda
+        twin_fn = maxsim_batch_q_cuda if quant else maxsim_batch_cuda
+        e1 = corpus_reshape(e, 1, n_docs)
+        twin = twin_fn(e1, m[None], q0[None])[0]
+        dense_ms = cuda_ms(lambda: twin_fn(e1, m[None], q0[None]))
+        for d in densities:
+            tm = bulk_tm[d]
+            got = got_b[fmt, d]
+            err = check_masked(f"phase 6b {fmt} density {d}", e, m, q0, tm,
+                               BN, BN, got, twin=twin)
+            if d == 0.0 and got.any():
+                fail(f"phase 6b {fmt}: density 0 must give all zeros")
+            nbytes, flops, on = masked_bound(e, m, q0, tm)
+            b_ms, b_by = bound(nbytes, flops)
+            ms = cuda_ms(lambda: kernel(e, m, q0, tm, BN, BN))
+            rec = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            if fmt == "int8" and d == 0.4:
+                rec["plain_ms"] = cuda_ms(
+                    lambda: masked_maxsim_plain(e, m, q0, tm, BN, BN),
+                    reps=5, inner=3)
+                records["masked_maxsim_q"] = dict(
+                    name="masked_maxsim_q", route="cuda",
+                    source="src/repro_torch/kernels/csrc/maxsim.cu",
+                    replaces="src/repro/kernels/masked_maxsim.py:56",
+                    library_ms=None, **rec)
+            print(f"phase 6b {fmt} N={n_docs} T=32 tile mask "
+                  f"{tuple(tm.shape)} density {d}: docs with an active tile "
+                  f"{on:.4f}; masked {ms:.4f} ms against dense "
+                  f"{dense_ms:.4f} ms (ratio {ms / dense_ms:.4f}); "
+                  f"{json.dumps(rec)}", flush=True)
+    print(f"phase 6b: launches {launches_b}", flush=True)
+    records["masked_maxsim"]["launches"] = (launches_a["masked_maxsim"]
+                                            + launches_b["masked_maxsim"])
+    records["masked_maxsim"]["max_abs_err"] = masked_err["masked_maxsim"]
+    records["masked_maxsim_q"]["launches"] = launches_b["masked_maxsim_q"]
+    records["masked_maxsim_q"]["max_abs_err"] = masked_err["masked_maxsim_q"]
+
     order = ("fused_reveal", "maxsim", "gather_maxsim", "fused_reveal_q",
-             "maxsim_q", "gather_maxsim_q")
+             "maxsim_q", "gather_maxsim_q", "masked_maxsim", "masked_maxsim_q")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: records[n][k] for k in keys}

@@ -58,12 +58,17 @@ _ENTRY_POINTS = {
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         ("colbandit_maxsim_q",
          _QUANT + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        ("colbandit_masked_maxsim",
+         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        ("colbandit_masked_maxsim_q",
+         _QUANT + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     ),
 }
 
 LAUNCHES: Dict[str, int] = {"maxsim": 0, "fused_reveal": 0,
                             "gather_maxsim": 0, "maxsim_q": 0,
-                            "fused_reveal_q": 0, "gather_maxsim_q": 0}
+                            "fused_reveal_q": 0, "gather_maxsim_q": 0,
+                            "masked_maxsim": 0, "masked_maxsim_q": 0}
 # Loaded libraries by source name, and the nvcc report of the last build.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}

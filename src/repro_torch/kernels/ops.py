@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
     gather_maxsim_plain, gather_maxsim_q_cuda
+from repro_torch.kernels.masked_maxsim import check_tiles, \
+    masked_maxsim_cuda, masked_maxsim_plain, masked_maxsim_q_cuda
 from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
     maxsim_batch_plain, maxsim_batch_q_cuda, maxsim_plain
 from repro_torch.kernels.quant import QuantTokens, corpus_leaves, \
@@ -49,6 +51,35 @@ def maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
         return maxsim_plain(doc_embs, doc_tok_mask, queries)
     return maxsim_batch_op(corpus_reshape(doc_embs, 1, doc_embs.shape[0]),
                            doc_tok_mask[None], queries[None])[0]
+
+
+def maxsim_scores_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
+                     queries: torch.Tensor) -> torch.Tensor:
+    """Full late-interaction scores S (N,) = sum_t H[:, t]. An all-masked
+    doc's T >= 2 sentinels of -3e38 sum to -inf, as in JAX."""
+    return maxsim_op(doc_embs, doc_tok_mask, queries).sum(-1)
+
+
+def masked_maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
+                     queries: torch.Tensor, tile_mask: torch.Tensor, *,
+                     block_n: int = 8, block_t: int = 8) -> torch.Tensor:
+    """Tile-masked MaxSim H (N, T) from (N, L, M), (N, L), (T, M): the
+    MaxSim where the cell's (doc-block, token-block) tile is active,
+    exactly 0 elsewhere. ``block_n``/``block_t`` are semantic: they define
+    the grid ``tile_mask`` (ceil(N/block_n), ceil(T/block_t)) bool is
+    written in. There is no ``block_l``: the CUDA kernels fix their own L
+    tile. A malformed tile mask raises ValueError; it is never padded."""
+    check_tiles("masked_maxsim_op", tile_mask, doc_embs.shape[0],
+                queries.shape[0], block_n, block_t)
+    if not _on_cuda("masked_maxsim_op", doc_embs, doc_tok_mask, queries,
+                    tile_mask):
+        return masked_maxsim_plain(doc_embs, doc_tok_mask, queries,
+                                   tile_mask, block_n, block_t)
+    quant = isinstance(doc_embs, QuantTokens)
+    kernel = masked_maxsim_q_cuda if quant else masked_maxsim_cuda
+    return kernel(doc_embs.contiguous(), doc_tok_mask.contiguous(),
+                  queries.contiguous(), tile_mask.contiguous(), block_n,
+                  block_t)
 
 
 def maxsim_batch_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,

@@ -9,7 +9,8 @@ Tolerance rtol=1e-5, atol=1e-6 for float32 and bf16 inputs alike (both are
 upcast exactly and accumulated in float32; only the summation order of the
 M-term dot products differs). A ``_q`` kernel on a compressed corpus also
 equals its float32 twin on the dequantized corpus bit for bit (one body,
-bit-equal rows). This file imports no JAX.
+bit-equal rows), and a tile-masked kernel equals ``where(tile, maxsim
+kernel, 0)`` bit for bit (one body). This file imports no JAX.
 
 The ``_q`` tests encode unit-norm doc token rows and score unit-norm query
 rows, as the served corpus does: ColBERT and ``data/synthetic.py``
@@ -25,9 +26,11 @@ import torch
 from repro_torch.configs.base import BanditConfig
 from repro_torch.core.frontier import TorchDraws
 from repro_torch.data.synthetic import make_retrieval_dataset
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
     gather_maxsim_plain, gather_maxsim_q_cuda
+from repro_torch.kernels.masked_maxsim import masked_maxsim_cuda, \
+    masked_maxsim_plain, masked_maxsim_q_cuda
 from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
     maxsim_batch_plain, maxsim_batch_q_cuda
 from repro_torch.kernels.quant import corpus_reshape, dequantize, quantize
@@ -236,3 +239,81 @@ def test_compressed_serving_launches_the_q_kernels(card, fmt):
     _build.reset_launches()
     make_serving_step("dense", topk=5)(*args)
     assert _build.LAUNCHES["maxsim_q"] == 1 and _build.LAUNCHES["maxsim"] == 0
+
+
+# ---------------------------------------------------------------------------
+# tile-masked MaxSim
+# ---------------------------------------------------------------------------
+
+MASKED_FMTS = [("f32", 0), ("bf16", 0), ("int8", 0), ("residual", 8),
+               ("residual", 1)]
+
+
+@pytest.mark.parametrize("tiles", ["random", "none", "all"])
+@pytest.mark.parametrize("fmt,Kc", MASKED_FMTS)
+@pytest.mark.parametrize("N,L,T,M,bn", [(256, 128, 32, 128, 8),
+                                        (5, 77, 19, 100, 4)])
+def test_masked_maxsim_matches_plain_and_the_maxsim_twin(card, fmt, Kc, N,
+                                                         L, T, M, bn, tiles):
+    """Docs 0 and N - 1 are all-masked; under the random mask (density
+    0.4) doc 0's tiles are all active and doc N - 1's all inactive."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    dt = torch.bfloat16 if fmt == "bf16" else torch.float32
+    if fmt in ("f32", "bf16"):
+        e, m = _docs(gen, N, L, M, torch.float32)
+        e = _unit(e).to(dt).contiguous()
+    else:
+        e, m = _quant_docs(gen, N, L, M, fmt, Kc)
+    m[N - 1] = False
+    q = _unit(torch.randn((T, M), generator=gen, device=card)).to(dt)
+    grid = (-(-N // bn), -(-T // bn))
+    if tiles == "random":
+        tm = torch.rand(grid, generator=gen, device=card) < 0.4
+        tm[0], tm[(N - 1) // bn] = True, False
+    else:
+        tm = torch.full(grid, tiles == "all", dtype=torch.bool, device=card)
+    _build.reset_launches()
+    got = ops.masked_maxsim_op(e, m, q, tm, block_n=bn, block_t=bn)
+    kernel = "masked_maxsim" if fmt in ("f32", "bf16") else "masked_maxsim_q"
+    assert _build.LAUNCHES[kernel] == 1 and sum(_build.LAUNCHES.values()) == 1
+    torch.testing.assert_close(got, masked_maxsim_plain(e, m, q, tm, bn, bn),
+                               rtol=RTOL, atol=ATOL)
+    full = tm.repeat_interleave(bn, 0).repeat_interleave(bn, 1)[:N, :T]
+    assert torch.equal(got, torch.where(full, ops.maxsim_op(e, m, q), 0.0))
+    neg = float(np.float32(-3e38))
+    if tiles != "none":
+        assert (got[0] == neg).all()
+    if tiles != "all":
+        assert (got[N - 1] == 0.0).all()
+    if tiles == "none":
+        assert not got.any()
+
+
+def test_masked_wrappers_raise_on_malformed_operands(card):
+    """Every malformed operand raises before a launch; nothing falls back
+    and no refused call is counted."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    e, m = _docs(gen, 16, 8, 32, torch.float32)
+    qt, _ = _quant_docs(gen, 16, 8, 32, "int8")
+    q = torch.randn((8, 32), generator=gen, device=card)
+    tm = torch.ones((2, 2), dtype=torch.bool, device=card)   # bn=8, bt=4
+    _build.reset_launches()
+    for bad, match in ((tm.float(), "bool"), (tm[:1], "tile_mask must be"),
+                       (tm.t(), "contiguous"), (tm.cpu(), "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            masked_maxsim_cuda(e, m, q, bad, 8, 4)
+        with pytest.raises(ValueError, match=match):
+            masked_maxsim_q_cuda(qt, m, q, bad, 8, 4)
+    with pytest.raises(ValueError, match=">= 1"):
+        masked_maxsim_cuda(e, m, q, tm, 0, 4)
+    with pytest.raises(ValueError, match="QuantTokens"):
+        masked_maxsim_q_cuda(e, m, q, tm, 8, 4)
+    with pytest.raises(ValueError, match="QuantTokens"):
+        masked_maxsim_cuda(qt, m, q, tm, 8, 4)
+    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
+        ops.masked_maxsim_op(e, m, q, tm.cpu(), block_n=8, block_t=4)
+    with pytest.raises(ValueError, match="tile_mask must be"):
+        ops.masked_maxsim_op(e, m, q, tm[:, :1], block_n=8, block_t=4)
+    assert not any(_build.LAUNCHES.values())
+    masked_maxsim_cuda(e, m, q, tm, 8, 4)
+    assert _build.LAUNCHES["masked_maxsim"] == 1
