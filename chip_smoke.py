@@ -10,7 +10,11 @@ Phases, in order:
      at the serving path's shapes plus edge cases, with timings and bounds;
      Each kernel with a compressed-corpus (``_q``) entry point is also run on
      int8 and residual corpora and held to its float32 twin on the
-     dequantized corpus bit for bit;
+     dequantized corpus bit for bit; every reveal cell is held to the dense
+     ``maxsim`` kernel's cell bit for bit, and the reveal entry points'
+     round and init launches are timed on the device alone (profiler
+     records, L2 flushed before each launch) and for the wrapper's host
+     cost alone;
   4. main path: ``serve_queries`` dense and bandit (fused and chain round
      bodies) over a 65,536-doc corpus at the text config's widths (T=32,
      L=128, M=128), with launch counts, cross-checks, throughput and a
@@ -31,6 +35,7 @@ The last two lines of standard output are the device line and
 JSON. TF32 is switched off for matrix products and cuDNN, so every float32
 reference product runs in full float32.
 """
+import contextlib
 import functools
 import json
 import statistics
@@ -65,6 +70,19 @@ def peaks(name: str):
     if "NVL" in name:
         return 3.9e12, 60e12
     return 3.35e12, 67e12          # H100 SXM
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call: ``calls`` calls with no synchronisation
+    in between, so the device never holds the host back."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 20) -> float:
@@ -146,8 +164,8 @@ def main() -> int:
         gather_maxsim_plain, gather_maxsim_q_cuda
     from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
         maxsim_batch_plain, maxsim_batch_q_cuda
-    from repro_torch.kernels.quant import corpus_nbytes, corpus_reshape, \
-        dequantize, quantize
+    from repro_torch.kernels.quant import corpus_index, corpus_nbytes, \
+        corpus_reshape, dequantize, quantize
     from repro_torch.kernels.reveal import fused_reveal_cuda, \
         fused_reveal_plain, fused_reveal_q_cuda
     from repro_torch.retrieval.corpus import build_corpus
@@ -187,9 +205,58 @@ def main() -> int:
                       f"{line.split(':', 1)[-1].strip()}")
 
     # 3. kernels against their plain versions ---------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     records = {}
+
+    @contextlib.contextmanager
+    def pad_profile():
+        """A profile whose first device records are a host pause and PAD
+        spin kernels: in a long-lived process a profile drops its first
+        device records, more with every profile taken, and these take that
+        loss."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(PAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            yield prof
+            torch.cuda.synchronize()
+
+    # Twice the 50 MB L2: zeroing it before a launch leaves its docs cold.
+    l2_flush = torch.empty(2 ** 25, device="cuda")
+
+    def device_ms(fn, body, n=20):
+        """Device ms per launch of the kernel whose name contains ``body``,
+        from the profiler's records of n launches of ``fn`` with L2 flushed
+        before each: no host cost, cold docs. Fails unless every launch has
+        its record."""
+        with pad_profile() as prof:
+            for _ in range(n):
+                l2_flush.zero_()
+                fn()
+        recs = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and body in e.key]
+        if sum(e.count for e in recs) != n:
+            fail(f"device_ms: {sum(e.count for e in recs)} records of {body} "
+                 f"for {n} launches")
+        return sum(e.self_device_time_total for e in recs) / 1e3 / n
+
+    def dense_cells(e, m, qtab, di, ti):
+        """The dense maxsim kernel's cells (doc di[f], query row ti[f, g]),
+        on the same corpus (float or QuantTokens) and query rows."""
+        F = di.shape[0]
+        md = m[di][None].contiguous()
+        if isinstance(e, torch.Tensor):
+            h = maxsim_batch_cuda(e[di][None].contiguous(), md, qtab[None])
+        else:
+            h = maxsim_batch_q_cuda(corpus_reshape(corpus_index(e, di), 1, F),
+                                    md, qtab[None])
+        return torch.gather(h[0], 1, ti)
 
     def bound(nbytes, flops):
         t_b, t_f = nbytes / bw * 1e3, flops / f32_peak * 1e3
@@ -271,6 +338,9 @@ def main() -> int:
         err_s = check_close(f"fused_reveal {label} stats", stats, ps)
         if not torch.equal(vals, got):
             fail(f"{label}: fused_reveal and gather_maxsim values differ")
+        if not torch.equal(got, dense_cells(e, m, qt, di, ti)):
+            fail(f"{label}: reveal cells differ from the dense maxsim "
+                 "kernel's cells")
         if not torch.equal(stats[:, 0], nm.sum(-1).float()):
             fail(f"{label}: fused_reveal counts differ from new_mask")
         if float(got[0].max()) != NEG:
@@ -278,7 +348,8 @@ def main() -> int:
         print(f"kernel gather_maxsim/fused_reveal {label} F={F} G={G} L={L} "
               f"M={M} {str(dt)[6:]} new={fresh}: max_abs_err vals={err_v:.3g} "
               f"stats={err_s:.3g} gather={err_g:.3g} ok (rtol={RTOL}, "
-              f"atol={ATOL}); fused vals == gather vals", flush=True)
+              f"atol={ATOL}); fused vals == gather vals == maxsim cells",
+              flush=True)
         if label not in ("round", "init"):
             continue
         it = [0]
@@ -310,7 +381,9 @@ def main() -> int:
                                        else max(err_v, err_s), 0.0),
                        ms=cuda_ms(fn), plain_ms=cuda_ms(plain, reps=5,
                                                         inner=5),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       device_ms=device_ms(fn, "reveal_kernel<DenseRows"),
+                       host_us=host_us(fn))
             print(f"timing {kname} {label} F={F} G={G}: "
                   f"{json.dumps(rec)}", flush=True)
             if label == "round":
@@ -420,6 +493,9 @@ def main() -> int:
             err_s = check_close(f"fused_reveal_q {tag} stats", stats, ps)
             if not torch.equal(vals, got):
                 fail(f"{tag}: fused_reveal_q and gather_maxsim_q differ")
+            if not torch.equal(got, dense_cells(qt, m, qtab, di, ti)):
+                fail(f"{tag}: reveal cells differ from the dense maxsim_q "
+                     "kernel's cells")
             tv, ts = fused_reveal_cuda(dense, m, qtab, di, ti, nm)
             if not (torch.equal(vals, tv) and torch.equal(stats, ts)
                     and torch.equal(got, gather_maxsim_cuda(dense, m, qtab,
@@ -431,8 +507,8 @@ def main() -> int:
             print(f"kernel gather_maxsim_q/fused_reveal_q {tag} F={F} G={G} "
                   f"L={L} M={M} new={fresh}: max_abs_err vals={err_v:.3g} "
                   f"stats={err_s:.3g} gather={err_g:.3g} ok (rtol={RTOL}, "
-                  f"atol={ATOL}); fused == gather == f32 twins bit for bit",
-                  flush=True)
+                  f"atol={ATOL}); fused == gather == f32 twins == maxsim_q "
+                  "cells bit for bit", flush=True)
             if label not in ("round", "init") or Kc == 1:
                 continue
             it = [0]
@@ -464,7 +540,9 @@ def main() -> int:
                                         else max(err_v, err_s)),
                            ms=cuda_ms(fn), plain_ms=cuda_ms(plain, reps=5,
                                                             inner=5),
-                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           device_ms=device_ms(fn, "reveal_kernel<QuantRows"),
+                           host_us=host_us(fn))
                 print(f"timing {kname} {fmt} {label} F={F} G={G}: "
                       f"{json.dumps(rec)}", flush=True)
                 if label == "round" and fmt == "int8":
@@ -595,9 +673,6 @@ def main() -> int:
           f"query {cand.doc_mask.sum(1).tolist()}", flush=True)
 
     # Where the time goes: one profiled call per flavor and one of stage 1.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profiled_line(label, fn, ref_ms, kernel="", launched=()):
         """Profile one call of ``fn`` and describe its device time against
         ``ref_ms`` of unprofiled wall time. In a long-lived process a
@@ -608,15 +683,9 @@ def main() -> int:
         where ``kernel`` is given, unless the profile holds one record
         whose name contains it per launch that ``fn`` made of the kernels
         named in ``launched``."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)
-            for _ in range(PAD):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize()
+        with pad_profile() as prof:
             _build.reset_launches()
             fn()
-            torch.cuda.synchronize()
         n_launched = sum(_build.LAUNCHES[k] for k in launched)
         # Device-side records only (kernels, copies, sets); CPU ops also
         # carry their kernels' time and would count it twice.
@@ -630,6 +699,8 @@ def main() -> int:
             fail(f"profile {label}: every pad record was lost, so the "
                  "call's first device records may be too")
         n_rec = sum(e.count for e in ev if kernel in e.key) if kernel else 0
+        k_ms = sum(e.self_device_time_total for e in ev
+                   if kernel and kernel in e.key) / 1e3
         if kernel and n_rec != n_launched:
             fail(f"profile {label}: {n_rec} records of {kernel} for "
                  f"{n_launched} launches")
@@ -641,7 +712,8 @@ def main() -> int:
                 f"{ref_ms:.1f} ms of unprofiled wall time (idle share "
                 f"{1 - busy / ref_ms:.3f}); {stalls} launch stalls on a full "
                 f"command buffer; pad records lost {PAD - pad_kept} of {PAD}"
-                + (f"; {kernel} records {n_rec} == launches {n_launched}"
+                + (f"; {kernel} records {n_rec} == launches {n_launched}, "
+                   f"{k_ms / max(n_rec, 1):.4f} device ms per launch"
                    if kernel else "") + "; top: "
                 + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f}"
                             f" ms x{e.count}" for e in top))

@@ -38,9 +38,11 @@ _LL = ctypes.c_longlong
 # The compressed corpus's leading arguments: data, scales, codes, codebook
 # (both None for int8), Kc.
 _QUANT = [_P, _P, _P, _P, _I]
-# C signature of every entry point, by library: (name, argtypes).
+# C signature of every entry point, by library: (name, argtypes), and
+# (name, argtypes, restype) where it returns other than an int status.
 _ENTRY_POINTS = {
     "reveal.cu": (
+        ("colbandit_reveal_smem_bytes", [_I, _I, _I, _I, _I, _I, _I], _LL),
         ("colbandit_fused_reveal",
          [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I,
           _P]),
@@ -134,10 +136,10 @@ def library(source: str) -> ctypes.CDLL:
     if lib is None:
         build([source])
         lib = ctypes.CDLL(str(_lib_path(source)))
-        for name, argtypes in _ENTRY_POINTS[source]:
+        for name, argtypes, *restype in _ENTRY_POINTS[source]:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype[0] if restype else ctypes.c_int
         _LIBS[source] = lib
     return lib
 

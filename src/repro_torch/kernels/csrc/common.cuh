@@ -24,22 +24,37 @@ __device__ __forceinline__ float nan_max(float acc, float x) {
 // every corpus kind. `row(r, cb_s)` returns a view of one row; `cb_s` is
 // the codebook staged in shared memory (unused by the dense and int8
 // loaders). `kCodebook` says whether the body must stage a codebook.
+// A body that copies rows raw (reveal.cu stages them with cp.async) reads
+// `raw(r)`, the row's M stored elements of type `Elem`, with `scale(r)`
+// and `code(r)` beside it (`kScaled`), and turns a stored element into
+// its value with `at`, the same formula the row view applies.
 //
 // DenseRows: a float32 or bf16 corpus (D, L, M).
 template <typename TE>
 struct DenseRows {
+  using Elem = TE;
   static constexpr bool kCodebook = false;
+  static constexpr bool kScaled = false;
   const TE* E;
   int M;
+  static __device__ __forceinline__ float at(TE x, float, const float*,
+                                             int) {
+    return to_f32(x);
+  }
   struct View {
     const TE* p;
     __device__ __forceinline__ float operator()(int m) const {
-      return to_f32(p[m]);
+      return at(p[m], 1.f, nullptr, m);
     }
   };
   __device__ __forceinline__ View row(int64_t r, const float*) const {
     return View{E + r * M};
   }
+  __host__ __device__ __forceinline__ const TE* raw(int64_t r) const {
+    return E + r * M;
+  }
+  __device__ __forceinline__ float scale(int64_t) const { return 1.f; }
+  __device__ __forceinline__ int code(int64_t) const { return 0; }
 };
 
 // QuantRows: an int8 corpus, data (D, L, M) int8 and scales (D, L) of TS
@@ -53,33 +68,50 @@ struct DenseRows {
 // clamped, as an index into the codebook must stay in bounds.
 template <typename TS, bool kResidual>
 struct QuantRows {
+  using Elem = int8_t;
   static constexpr bool kCodebook = kResidual;
+  static constexpr bool kScaled = true;
   const int8_t* data;
   const TS* scales;
   const int32_t* codes;
   const float* codebook;  // global (Kc, M); the body stages it in cb_s
   int M, Kc;
+  // Element m of a row with scale s; c is the row's centroid (residual).
+  static __device__ __forceinline__ float at(int8_t x, float s,
+                                             const float* c, int m) {
+    const float v = __fmul_rn(static_cast<float>(x), s);
+    if constexpr (kResidual) {
+      return __fadd_rn(v, c[m]);
+    } else {
+      return v;
+    }
+  }
   struct View {
     const int8_t* p;
     float s;
     const float* c;  // cb_s + code * M (residual only)
     __device__ __forceinline__ float operator()(int m) const {
-      const float v = __fmul_rn(static_cast<float>(p[m]), s);
-      if constexpr (kResidual) {
-        return __fadd_rn(v, c[m]);
-      } else {
-        return v;
-      }
+      return at(p[m], s, c, m);
     }
   };
   __device__ __forceinline__ View row(int64_t r, const float* cb_s) const {
     const float* c = nullptr;
+    if constexpr (kResidual) c = cb_s + (int64_t)code(r) * M;
+    return View{data + r * M, scale(r), c};
+  }
+  __host__ __device__ __forceinline__ const int8_t* raw(int64_t r) const {
+    return data + r * M;
+  }
+  __device__ __forceinline__ float scale(int64_t r) const {
+    return to_f32(scales[r]);
+  }
+  __device__ __forceinline__ int code(int64_t r) const {
     if constexpr (kResidual) {
-      int k = codes[r];
-      k = k < 0 ? 0 : (k >= Kc ? Kc - 1 : k);
-      c = cb_s + (int64_t)k * M;
+      const int k = codes[r];
+      return k < 0 ? 0 : (k >= Kc ? Kc - 1 : k);
+    } else {
+      return 0;
     }
-    return View{data + r * M, to_f32(scales[r]), c};
   }
 };
 

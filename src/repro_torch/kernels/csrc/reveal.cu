@@ -20,81 +20,379 @@
 // Bound: bytes. A frontier row reads its doc's valid (L, M) tokens once and
 // does 2*G*M flops per token: G/2 flop per f32 byte, 2*G per int8 byte,
 // below the ~20 flop/byte ridge of the f32 CUDA cores for the serving
-// path's G = 1 (init reveal) and G = 8 (rounds). Design: one block per
-// frontier row reads its own doc_idx[f] (the TPU kernel's scalar prefetch)
-// and gathers its G query rows into shared memory, so no (F, L, M) gathered
-// copy ever reaches device memory. Each warp streams whole doc tokens,
-// coalesced, through a private shared-memory row; on a compressed corpus the
-// loader dequantizes the row on the way in (only int8 bytes, the row's
-// scale and code leave device memory; the residual codebook is staged in
-// shared memory once per block). Lanes split M and a xor-shuffle tree
-// finishes the dot, so one cell's value never depends on its frontier row,
-// its g slot or G. All entry points share that code, hence the chain and
-// fused round bodies see bit-identical values on every corpus kind. Thread
-// 0 sums the stats serially in ascending g with no FMA contraction: the
-// plain PyTorch version (kernels/reveal.py::reveal_stats) repeats that order
-// exactly. Out-of-range indices are clamped, as an XLA gather does.
+// path's G = 1 (init reveal) and G = 8 (rounds). What holds a launch back
+// is latency: F = 128 rows give one block per SM, so each block must get
+// its whole doc in flight at once, and a cell is a 128-deep FMA chain.
+//
+// Design. One block per frontier row f (256 threads, or 128 for a launch
+// of more than 512 rows: Shape below) reads its own doc_idx[f] (the TPU
+// kernel's scalar prefetch), so no (F, L, M) gathered copy ever reaches
+// device memory. Its tok_idx and new_mask rows are read beside doc_idx,
+// so no dependent load waits on them later.
+//  1. The doc's mask row is read once and its valid tokens are compacted
+//     into a list in shared memory (a warp ballot per 32 tokens), so
+//     masked tokens are never read and a mask with holes costs nothing.
+//  2. The valid rows are staged in chunks of kChunk = 64 tokens (32 in
+//     the 128-thread shape) into two shared buffers with cp.async
+//     (async_copy.cuh): every thread issues 16-byte copies, and the first
+//     two chunks (128 tokens, a whole serving doc, in the 256-thread shape)
+//     are requested before anything is used. Rows stay in their stored
+//     type: an int8 chunk costs M bytes a row, with its scale and code
+//     staged beside it. A row whose address is not 16-byte
+//     aligned (M = 100 int8 rows are 100 bytes) is copied in 8- or 4-byte
+//     pieces, and in plain 2- or 1-byte loads below that. A staged row is
+//     padded by 16 bytes, so the 16-byte reads of 8 threads on 8 rows
+//     fall in distinct banks.
+//  3. While the copies fly, the G selected query rows are gathered into
+//     shared memory transposed, (M, gp) with G padded to gp, a multiple of
+//     4, so one float4 read serves 4 query rows as a warp broadcast (and a
+//     thread holds one 16-byte row piece and 4 sums); the residual
+//     codebook is staged with rows padded to M + 4 floats, so threads on 8
+//     different centroids read 8 different banks.
+//  4. Thread t owns token lane t % kChunk of every chunk and the batches
+//     of 4 query rows b = t / kChunk + 4p (p < 4, G <= 64). A cell's dot is
+//     one sequential fmaf chain over m = 0..M-1 from 0.f, of the row element
+//     (dequantized by the loader's `at` formula) times the query element:
+//     exactly the dense maxsim body's per-cell arithmetic (maxsim.cu), so a
+//     revealed cell equals the dense kernel's cell bit for bit and depends
+//     on neither F, G nor the cell's row or slot. A running nan_max per
+//     cell stays in registers across chunks; at the end of the row one
+//     warp xor-shuffle tree and one pass over the warps of each batch
+//     give vals. nan_max lets a NaN win in any order. At G = 1 a thread
+//     computes the one query row alone, not a batch of 4 with 3 padding.
+// Thread 0 sums the stats serially in ascending g with no FMA contraction:
+// the plain PyTorch version (kernels/reveal.py::reveal_stats) repeats that
+// order exactly. Out-of-range indices and codes are clamped, as an XLA
+// gather does. Every barrier is reached by all threads: the chunk loop's
+// trip count is uniform (the valid-token count), and per-thread work sits
+// between barriers. The shared-memory layout has one definition,
+// layout(), read by the launch and exported to the Python wrappers'
+// check as colbandit_reveal_smem_bytes.
+#include "async_copy.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kGW = 4;     // query rows per batch (one float4)
+constexpr int kMaxG = 64;  // query rows per frontier row
 
-template <typename Rows, typename TQ, bool kStats>
-__global__ void __launch_bounds__(kThreads)
+// A block shape: threads per block, valid tokens per staged chunk and
+// chunks in flight. Thread t owns token lane t % kChunk and batches
+// t / kChunk + kBatchLanes * p, p < kPasses.
+template <int kThreads_, int kChunk_, int kBufs_, int kMinBlocks_>
+struct Shape {
+  static constexpr int kThreads = kThreads_;
+  // Blocks per SM the register budget is set for (launch bounds).
+  static constexpr int kMinBlocks = kMinBlocks_;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kChunk = kChunk_;
+  static constexpr int kBufs = kBufs_;
+  static constexpr int kBatchLanes = kThreads / kChunk;
+  static constexpr int kPasses = kMaxG / (kGW * kBatchLanes);
+  static constexpr int kWarpsPerBatch = kChunk / 32;
+  static_assert(kPasses * kGW * kBatchLanes == kMaxG, "uneven batches");
+};
+// Few rows (a round: F = 128 on 132 SMs) leave one block per SM, which
+// must hold a whole serving doc in flight: 256 threads, 64-token chunks.
+// Many rows (the init reveal: F = 4096) are better served by more, smaller
+// blocks per SM, each waiting on its own doc: 128 threads, 32 tokens.
+// Both keep a thread to 80 registers: 3 and 6 blocks fit per SM.
+using Wide = Shape<256, 64, 2, 3>;
+using Narrow = Shape<128, 32, 2, 6>;
+constexpr int kNarrowRows = 512;  // F above this takes Narrow
+
+// fn(Shape{}) with the shape a launch of F frontier rows takes.
+template <typename Fn>
+__host__ auto by_shape(int F, Fn fn) {
+  return F > kNarrowRows ? fn(Narrow{}) : fn(Wide{});
+}
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) & ~size_t(15);
+}
+
+// Byte offsets of one block's shared-memory regions.
+struct Layout {
+  int gp;         // G rounded up to a multiple of kGW (at least kGW)
+  int stride;     // bytes of one staged doc row
+  int cb_stride;  // floats of one staged codebook row
+  size_t q, tq, nm, buf, cb, tok, sc, cd, red, v, cnt, total;
+};
+
+// esz: bytes of one stored row element; scaled: rows carry a scale; Kc:
+// codebook rows (0 without one).
+template <typename S>
+__host__ __device__ inline Layout layout(int G, int L, int M, int esz,
+                                         bool scaled, int Kc) {
+  Layout o;
+  o.gp = G > 0 ? (G + kGW - 1) / kGW * kGW : kGW;
+  o.stride = static_cast<int>(align16((size_t)M * esz)) + 16;
+  o.cb_stride = M + 4;
+  size_t at = 0;
+  o.q = at;    // (M, gp) f32 query rows, transposed; rows G.. are zero
+  at += (size_t)M * o.gp * 4;
+  o.tq = at;   // (gp,) int64 clamped query row ids
+  at += align16((size_t)o.gp * 8);
+  o.nm = at;   // (gp,) new_mask bytes of the row
+  at += align16((size_t)o.gp);
+  o.buf = at;  // kBufs x (kChunk, stride) staged rows
+  at += (size_t)S::kBufs * S::kChunk * o.stride;
+  o.cb = at;   // (Kc, cb_stride) f32 codebook
+  at += align16((size_t)Kc * o.cb_stride * 4);
+  o.tok = at;  // (L,) int32 valid token ids, compacted
+  at += align16((size_t)L * 4);
+  o.sc = at;   // (L,) f32 scales of the valid tokens
+  at += scaled ? align16((size_t)L * 4) : 0;
+  o.cd = at;   // (L,) int32 clamped codes of the valid tokens
+  at += Kc > 0 ? align16((size_t)L * 4) : 0;
+  o.red = at;  // (kWarpsPerBatch, gp) per-warp maxima
+  at += align16((size_t)S::kWarpsPerBatch * o.gp * 4);
+  o.v = at;    // (gp,) finished values
+  at += align16((size_t)o.gp * 4);
+  o.cnt = at;  // (kWarps,) valid tokens per warp in a compaction pass
+  at += align16((size_t)S::kWarps * 4);
+  o.total = at;
+  return o;
+}
+
+// The valid token ids of one doc's mask row, ascending, into tok_s;
+// returns their count (the same in every thread). At least one pass runs,
+// so its barriers also publish what the block stored before the call.
+template <typename S>
+__device__ __forceinline__ int compact_valid(const uint8_t* m_doc, int L,
+                                             int* tok_s, int* cnt_s,
+                                             int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  int n = 0;
+  for (int l0 = 0; l0 == 0 || l0 < L; l0 += S::kThreads) {
+    const int l = l0 + tid;
+    const bool valid = l < L && m_doc[l] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) cnt_s[warp] = __popc(bal);
+    __syncthreads();
+    int base = n, total = 0;
+    for (int w = 0; w < S::kWarps; ++w) {
+      const int c = cnt_s[w];
+      base += w < warp ? c : 0;
+      total += c;
+    }
+    if (valid) tok_s[base + __popc(bal & ((1u << lane) - 1u))] = l;
+    n += total;
+    __syncthreads();  // cnt_s is reused; tok_s is complete
+  }
+  return n;
+}
+
+// Start copying rows tok[0..n_k) of the doc (corpus rows row0 + tok[j])
+// into the staged rows of dst, in pieces of gran bytes (every row address
+// and the row length are multiples of gran). The caller commits the group.
+template <typename S, typename Rows>
+__device__ __forceinline__ void stage_chunk(const Rows& rows,
+                                            unsigned char* dst,
+                                            const int* tok, int n_k,
+                                            int64_t row0, int row_bytes,
+                                            int stride, int gran, int tid) {
+  const int pieces = row_bytes / gran;
+  for (int i = tid; i < n_k * pieces; i += S::kThreads) {
+    const int j = i / pieces, pc = i - j * pieces;
+    const unsigned char* from =
+        reinterpret_cast<const unsigned char*>(rows.raw(row0 + tok[j])) +
+        (size_t)pc * gran;
+    unsigned char* to = dst + (size_t)j * stride + (size_t)pc * gran;
+    switch (gran) {
+      case 16: copy_async<16>(to, from); break;
+      case 8: copy_async<8>(to, from); break;
+      case 4: copy_async<4>(to, from); break;
+      case 2:
+        *reinterpret_cast<uint16_t*>(to) =
+            *reinterpret_cast<const uint16_t*>(from);
+        break;
+      default: *to = *from;
+    }
+  }
+}
+
+// acc[k] = fmaf(ev, q[k], acc[k]) for the W query values at q.
+template <int W>
+__device__ __forceinline__ void fma_query(float ev, const float* q,
+                                          float (&acc)[W]) {
+  if constexpr (W == kGW) {
+    const float4 qv = *reinterpret_cast<const float4*>(q);
+    acc[0] = fmaf(ev, qv.x, acc[0]);
+    acc[1] = fmaf(ev, qv.y, acc[1]);
+    acc[2] = fmaf(ev, qv.z, acc[2]);
+    acc[3] = fmaf(ev, qv.w, acc[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) acc[k] = fmaf(ev, q[k], acc[k]);
+  }
+}
+
+// acc[k] = sequential fmaf chain over m of element m of staged row e
+// (scale s, centroid row c) times q[m * gp + k], k < W (1 or kGW). The
+// row is read 16 bytes at a time.
+template <typename Rows, int W>
+__device__ __forceinline__ void dot_row(const typename Rows::Elem* e,
+                                        float s, const float* c,
+                                        const float* q, int gp, int M,
+                                        float (&acc)[W]) {
+  using Elem = typename Rows::Elem;
+  constexpr int kVec = 16 / sizeof(Elem);
+#pragma unroll
+  for (int k = 0; k < W; ++k) acc[k] = 0.f;
+  int m = 0;
+  for (; m + kVec <= M; m += kVec) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(e + m);
+    const Elem* x = reinterpret_cast<const Elem*>(&raw);
+#pragma unroll
+    for (int v = 0; v < kVec; ++v)
+      fma_query<W>(Rows::at(x[v], s, c, m + v), q + (size_t)(m + v) * gp,
+                   acc);
+  }
+  for (; m < M; ++m)
+    fma_query<W>(Rows::at(e[m], s, c, m), q + (size_t)m * gp, acc);
+}
+
+// The shape comes last, so a profile's kernel name still starts with
+// reveal_kernel<DenseRows or reveal_kernel<QuantRows.
+template <typename Rows, typename TQ, bool kStats, typename S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 reveal_kernel(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qt, const int64_t* __restrict__ doc_idx,
               const int64_t* __restrict__ tok_idx,
               const uint8_t* __restrict__ new_mask, float* __restrict__ vals,
               float* __restrict__ stats, int G, int L, int M, int64_t D,
-              int64_t TQn) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                        // (G, M) selected query rows
-  float* e_s = q_s + (size_t)G * M;         // (kWarps, M) one doc row per warp
-  float* w_max = e_s + (size_t)kWarps * M;  // (kWarps, G) running max per warp
-  float* v_s = w_max + kWarps * G;          // (G,) finished values
-  float* cb_s = v_s + G;                    // (Kc, M) codebook, residual only
+              int64_t TQn, int Kc, int gran) {
+  using Elem = typename Rows::Elem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout o = layout<S>(G, L, M, sizeof(Elem), Rows::kScaled, Kc);
+  const int gp = o.gp;
+  float* q_s = reinterpret_cast<float*>(smem + o.q);
+  int64_t* tq_s = reinterpret_cast<int64_t*>(smem + o.tq);
+  uint8_t* nm_s = smem + o.nm;
+  unsigned char* buf = smem + o.buf;
+  float* cb_s = reinterpret_cast<float*>(smem + o.cb);
+  int* tok_s = reinterpret_cast<int*>(smem + o.tok);
+  float* sc_s = reinterpret_cast<float*>(smem + o.sc);
+  int* cd_s = reinterpret_cast<int*>(smem + o.cd);
+  float* red = reinterpret_cast<float*>(smem + o.red);
+  float* v_s = reinterpret_cast<float*>(smem + o.v);
+  int* cnt_s = reinterpret_cast<int*>(smem + o.cnt);
 
   const int64_t f = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int64_t d = doc_idx[f];
   d = d < 0 ? 0 : (d >= D ? D - 1 : d);
+  const int64_t row0 = d * L;
+  // Beside doc_idx, not after it.
+  for (int g = tid; g < G; g += S::kThreads) {
+    const int64_t t = tok_idx[f * G + g];
+    tq_s[g] = t < 0 ? 0 : (t >= TQn ? TQn - 1 : t);
+    if (kStats) nm_s[g] = new_mask[f * G + g];
+  }
 
-  for (int i = tid; i < G * M; i += kThreads) {
+  // 1. the doc's valid tokens; 2. its first chunks in flight.
+  const int n = compact_valid<S>(mask + row0, L, tok_s, cnt_s, tid);
+  const int nc = (n + S::kChunk - 1) / S::kChunk;
+  const int row_bytes = M * static_cast<int>(sizeof(Elem));
+  const size_t buf_bytes = (size_t)S::kChunk * o.stride;
+  for (int k = 0; k < S::kBufs; ++k) {
+    const int n_k = min(S::kChunk, max(0, n - k * S::kChunk));
+    stage_chunk<S>(rows, buf + k * buf_bytes, tok_s + k * S::kChunk, n_k,
+                   row0, row_bytes, o.stride, gran, tid);
+    copy_async_commit();
+  }
+
+  // 3. while they fly: query rows (ids from tq_s, so a thread's loads are
+  // independent), codebook, scales and codes.
+#pragma unroll 4
+  for (int i = tid; i < gp * M; i += S::kThreads) {
     const int g = i / M, m = i - g * M;
-    int64_t t = tok_idx[f * G + g];
-    t = t < 0 ? 0 : (t >= TQn ? TQn - 1 : t);
-    q_s[i] = to_f32(Qt[t * M + m]);
+    q_s[m * gp + g] = g < G ? to_f32(Qt[tq_s[g] * M + m]) : 0.f;
   }
-  for (int i = tid; i < kWarps * G; i += kThreads) w_max[i] = COLBANDIT_NEG;
-  stage_codebook(rows, cb_s, tid, kThreads);
-  __syncthreads();
-
-  const uint8_t* m_doc = mask + d * (int64_t)L;
-  float* e_w = e_s + warp * M;
-  float* w_row = w_max + warp * G;
-  for (int l = warp; l < L; l += kWarps) {
-    if (!m_doc[l]) continue;  // warp-uniform: masked tokens are never read
-    const auto e_l = rows.row(d * L + l, cb_s);
-    for (int m = lane; m < M; m += 32) e_w[m] = e_l(m);
-    __syncwarp();
-    for (int g = 0; g < G; ++g) {
-      const float* q_g = q_s + g * M;
-      float acc = 0.f;
-      for (int m = lane; m < M; m += 32) acc = fmaf(e_w[m], q_g[m], acc);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) w_row[g] = nan_max(w_row[g], acc);
+  if constexpr (Rows::kCodebook) {
+    for (int i = tid; i < Kc * M; i += S::kThreads) {
+      const int k = i / M;
+      cb_s[k * o.cb_stride + (i - k * M)] = rows.codebook[i];
     }
-    __syncwarp();
+  }
+  if constexpr (Rows::kScaled) {
+    for (int i = tid; i < n; i += S::kThreads) {
+      const int64_t r = row0 + tok_s[i];
+      sc_s[i] = rows.scale(r);
+      if constexpr (Rows::kCodebook) cd_s[i] = rows.code(r);
+    }
+  }
+
+  // 4. chunk k computes while the next ones land.
+  float run[S::kPasses][kGW];
+#pragma unroll
+  for (int p = 0; p < S::kPasses; ++p)
+#pragma unroll
+    for (int k = 0; k < kGW; ++k) run[p][k] = COLBANDIT_NEG;
+  const int j = tid % S::kChunk, b0 = tid / S::kChunk;
+  const int nb = (G + kGW - 1) / kGW;
+  for (int k = 0; k < nc; ++k) {
+    copy_async_wait<S::kBufs - 1>();  // this thread's chunk k has landed
+    __syncthreads();  // everyone's has, and step 3 is done
+    const int k0 = k * S::kChunk, n_k = min(S::kChunk, n - k0);
+    unsigned char* cur = buf + (k % S::kBufs) * buf_bytes;
+    if (j < n_k) {
+      const Elem* e =
+          reinterpret_cast<const Elem*>(cur + (size_t)j * o.stride);
+      float s = 1.f;
+      const float* c = nullptr;
+      if constexpr (Rows::kScaled) s = sc_s[k0 + j];
+      if constexpr (Rows::kCodebook) c = cb_s + cd_s[k0 + j] * o.cb_stride;
+      if (G == 1) {  // uniform: no padded query rows, one thread a token
+        if (b0 == 0) {
+          float acc[1];
+          dot_row<Rows, 1>(e, s, c, q_s, gp, M, acc);
+          run[0][0] = nan_max(run[0][0], acc[0]);
+        }
+      } else {
+#pragma unroll
+        for (int p = 0; p < S::kPasses; ++p) {
+          const int b = b0 + S::kBatchLanes * p;
+          if (b < nb) {
+            float acc[kGW];
+            dot_row<Rows, kGW>(e, s, c, q_s + b * kGW, gp, M, acc);
+#pragma unroll
+            for (int q = 0; q < kGW; ++q)
+              run[p][q] = nan_max(run[p][q], acc[q]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // chunk k's buffer is free
+    const int k2 = k + S::kBufs;
+    const int n_next = min(S::kChunk, max(0, n - k2 * S::kChunk));
+    stage_chunk<S>(rows, cur, tok_s + k2 * S::kChunk, n_next, row0,
+                   row_bytes, o.stride, gran, tid);
+    copy_async_commit();
+  }
+
+  // 5. one warp tree per cell, then the warps of each batch meet.
+  const int h = warp % S::kWarpsPerBatch;
+#pragma unroll
+  for (int p = 0; p < S::kPasses; ++p) {
+    const int b = b0 + S::kBatchLanes * p;  // warp-uniform
+    if (b < nb) {
+#pragma unroll
+      for (int q = 0; q < kGW; ++q) {
+        float x = run[p][q];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
+        if (lane == 0) red[h * gp + b * kGW + q] = x;
+      }
+    }
   }
   __syncthreads();
-
-  for (int g = tid; g < G; g += kThreads) {
-    float v = COLBANDIT_NEG;
-    for (int w = 0; w < kWarps; ++w) v = nan_max(v, w_max[w * G + g]);
+  for (int g = tid; g < G; g += S::kThreads) {
+    float v = red[g];
+    for (int w = 1; w < S::kWarpsPerBatch; ++w)
+      v = nan_max(v, red[w * gp + g]);
     vals[f * G + g] = v;
     v_s[g] = v;
   }
@@ -103,7 +401,7 @@ reveal_kernel(Rows rows, const uint8_t* __restrict__ mask,
     if (tid == 0) {
       float cnt = 0.f, tot = 0.f, sq = 0.f;
       for (int g = 0; g < G; ++g) {
-        const bool fresh = new_mask[f * G + g] != 0;
+        const bool fresh = nm_s[g] != 0;
         const float v = v_s[g];
         // vm * v, not new * v * v: an all-masked doc's -3e38 squared would
         // overflow to inf and 0 * inf is NaN.
@@ -133,18 +431,46 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Rows, typename TQ, bool kStats>
-int launch(const Rows& rows, const Args& a) {
-  const size_t smem = ((size_t)a.G * a.M + (size_t)kWarps * a.M +
-                       (size_t)kWarps * a.G + a.G + codebook_floats(rows)) *
-                      sizeof(float);
-  auto kernel = reveal_kernel<Rows, TQ, kStats>;
+// The widest copy (16, 8, 4, 2 or 1 bytes) that every row start honours.
+int copy_granularity(const void* base, int row_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base) |
+                      static_cast<uintptr_t>(row_bytes);
+  int g = 16;
+  while (g > 1 && (a & (g - 1))) g >>= 1;
+  return g;
+}
+
+template <typename Rows>
+int codebook_rows(const Rows& rows) {
+  if constexpr (Rows::kCodebook) {
+    return rows.Kc;
+  } else {
+    return 0;
+  }
+}
+
+template <typename S, typename Rows, typename TQ, bool kStats>
+int launch_shape(const Rows& rows, const Args& a) {
+  using Elem = typename Rows::Elem;
+  const int kc = codebook_rows(rows);
+  const size_t smem =
+      layout<S>(a.G, a.L, a.M, sizeof(Elem), Rows::kScaled, kc).total;
+  auto kernel = reveal_kernel<Rows, TQ, kStats, S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<a.F, kThreads, smem, a.stream>>>(
+  kernel<<<a.F, S::kThreads, smem, a.stream>>>(
       rows, a.mask, static_cast<const TQ*>(a.Q), a.doc_idx, a.tok_idx,
-      a.new_mask, a.vals, a.stats, a.G, a.L, a.M, a.D, a.n_tok);
+      a.new_mask, a.vals, a.stats, a.G, a.L, a.M, a.D, a.n_tok, kc,
+      copy_granularity(rows.raw(0), a.M * (int)sizeof(Elem)));
   return (int)cudaGetLastError();
+}
+
+template <typename Rows, typename TQ, bool kStats>
+int launch(const Rows& rows, const Args& a) {
+  if (a.G < 0 || a.G > kMaxG) return (int)cudaErrorInvalidValue;
+  return by_shape(a.F, [&](auto shape) {
+    return launch_shape<decltype(shape), Rows, TQ, kStats>(rows, a);
+  });
 }
 
 template <typename Rows, bool kStats>
@@ -185,6 +511,22 @@ int quant(const int8_t* data, const void* scales, const int32_t* codes,
 }
 
 }  // namespace
+
+// Bytes of shared memory one block of a launch of F frontier rows takes
+// for G query rows per frontier row, docs of L tokens of M elements of
+// elem_bytes bytes (4 f32, 2 bf16, 1 int8), scaled rows (the _q entry
+// points) and Kc codebook rows (0 without one); -1 where G is beyond the
+// kernel's 64.
+extern "C" long long colbandit_reveal_smem_bytes(int F, int G, int L, int M,
+                                                 int elem_bytes, int scaled,
+                                                 int Kc) {
+  if (G < 0 || G > kMaxG) return -1;
+  return by_shape(F, [&](auto shape) {
+    return (long long)layout<decltype(shape)>(G, L, M, elem_bytes,
+                                              scaled != 0, Kc)
+        .total;
+  });
+}
 
 extern "C" int colbandit_fused_reveal(const void* E, const uint8_t* mask,
                                       const void* Q, const int64_t* doc_idx,

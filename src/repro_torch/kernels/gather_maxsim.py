@@ -7,13 +7,19 @@ Q[tok_idx[s, g]]>. It is the fused reveal kernel's body with the
 statistics compiled out, so the chain and fused round bodies read
 bit-identical values. Bound on the H100: device-memory bytes, as for the
 fused reveal; the JAX version gathered in XLA first, this one gathers
-inside the kernel and never builds the (B, L, M) copy.
+inside the kernel and never builds the (B, L, M) copy. One block per
+frontier row compacts its doc's valid tokens, stages them into shared
+memory 64 at a time with ``cp.async`` (two chunks in flight), and each
+cell is one sequential FMA chain over M, so a cell equals the dense
+``maxsim`` kernel's bit for bit. G is at most 64; the shared memory a
+launch needs comes from the kernel's own ``colbandit_reveal_smem_bytes``.
 
 ``colbandit_gather_maxsim_q`` (same source, same body) replaces the
 quantized TPU kernel ``_gather_maxsim_q_kernel``: on a ``QuantTokens``
-corpus only int8 bytes, the row's scale and code are gathered, and each
-row is dequantized in shared memory before its dot. Bound on the H100:
-bytes (2*G flop per int8 byte, under the ridge for G <= 8).
+corpus only int8 bytes, the row's scale and code are gathered; rows stay
+int8 in shared memory and are dequantized by the loader's formula in the
+dot. Bound on the H100: bytes (2*G flop per int8 byte, under the ridge
+for G <= 8).
 
 ``gather_maxsim_plain`` is the plain PyTorch version of both
 (``kernels/ref.py``'s ``gather_maxsim_ref``).
@@ -73,11 +79,17 @@ def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
         doc_tok_mask, queries, doc_idx, tok_idx)), name,
         "operands must be contiguous")
     G = tok_idx.shape[1]
-    smem = (G * M + 8 * M + 8 * G + G + kc * M) * 4
-    _build.require(doc_idx.shape[0] < 2 ** 31
-                   and smem <= _build.SHARED_MEM_BYTES, name,
-                   f"G={G}, M={M}, Kc={kc} need {smem} bytes of shared "
-                   "memory")
+    _build.require(doc_idx.shape[0] < 2 ** 31, name,
+                   f"{doc_idx.shape[0]} frontier rows exceed the grid")
+    esz = 1 if quant else doc_embs.element_size()
+    smem = _build.library("reveal.cu").colbandit_reveal_smem_bytes(
+        doc_idx.shape[0], G, L, M, esz, int(quant), kc)
+    _build.require(smem >= 0, name,
+                   f"G={G} query rows per frontier row exceed the "
+                   "kernel's limit (kMaxG in csrc/reveal.cu)")
+    _build.require(smem <= _build.SHARED_MEM_BYTES, name,
+                   f"G={G}, L={L}, M={M}, Kc={kc} need {smem} bytes of "
+                   "shared memory")
     return dev, corpus_args, e_bf16
 
 

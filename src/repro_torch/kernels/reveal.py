@@ -9,13 +9,19 @@ sufficient-statistic deltas over the fresh cells, so the caller's state
 update is one scatter-min and one 3-column scatter-add. Bound on the H100:
 device-memory bytes (G/2 flop per doc byte, far under the f32 ridge at the
 serving path's G = 1 and 8); one block per row reads only its own doc's
-valid tokens. The TPU layout's 8-lane stats padding is dropped: stats are
+valid tokens, all of a serving doc's rows in flight at once (``cp.async``
+into two 64-token shared buffers; 128 threads and 32-token buffers for a
+launch of more than 512 rows, such as the init reveal), and each thread
+keeps a running max per cell in registers, so one shuffle tree per cell
+runs at the end of the row. Each cell is one sequential FMA chain over M, the dense
+``maxsim`` kernel's arithmetic, so the two kernels' cells are equal bit
+for bit. The TPU layout's 8-lane stats padding is dropped: stats are
 (F, 3).
 
 ``colbandit_fused_reveal_q`` (same source, same body) replaces the
 quantized TPU kernel ``_fused_reveal_q_kernel``: on a ``QuantTokens``
-corpus the block reads only int8 bytes, the row's scale and code, and
-dequantizes each row in shared memory before its dot (the residual
+corpus the block copies only int8 bytes, the row's scale and code into
+shared memory and dequantizes each element in the dot (the residual
 codebook is staged in shared memory once per block). Bound on the H100:
 bytes (2*G flop per int8 byte). Its values equal ``colbandit_fused_reveal``
 on the dequantized corpus, and ``colbandit_gather_maxsim_q`` on the same

@@ -9,8 +9,11 @@ Tolerance rtol=1e-5, atol=1e-6 for float32 and bf16 inputs alike (both are
 upcast exactly and accumulated in float32; only the summation order of the
 M-term dot products differs). A ``_q`` kernel on a compressed corpus also
 equals its float32 twin on the dequantized corpus bit for bit (one body,
-bit-equal rows), and a tile-masked kernel equals ``where(tile, maxsim
-kernel, 0)`` bit for bit (one body). This file imports no JAX.
+bit-equal rows), a tile-masked kernel equals ``where(tile, maxsim
+kernel, 0)`` bit for bit (one body), and every reveal cell equals the dense
+``maxsim`` kernel's cell bit for bit (the same sequential FMA chain over
+M), whatever G and the order of the frontier rows. This file imports no
+JAX.
 
 The ``_q`` tests encode unit-norm doc token rows and score unit-norm query
 rows, as the served corpus does: ColBERT and ``data/synthetic.py``
@@ -33,7 +36,8 @@ from repro_torch.kernels.masked_maxsim import masked_maxsim_cuda, \
     masked_maxsim_plain, masked_maxsim_q_cuda
 from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
     maxsim_batch_plain, maxsim_batch_q_cuda
-from repro_torch.kernels.quant import corpus_reshape, dequantize, quantize
+from repro_torch.kernels.quant import corpus_index, corpus_reshape, \
+    dequantize, quantize
 from repro_torch.kernels.reveal import fused_reveal_cuda, \
     fused_reveal_plain, fused_reveal_q_cuda
 from repro_torch.retrieval.corpus import build_corpus
@@ -317,3 +321,119 @@ def test_masked_wrappers_raise_on_malformed_operands(card):
     assert not any(_build.LAUNCHES.values())
     masked_maxsim_cuda(e, m, q, tm, 8, 4)
     assert _build.LAUNCHES["masked_maxsim"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the reveal body's cell arithmetic: one sequential FMA chain, as maxsim's
+# ---------------------------------------------------------------------------
+
+REVEAL_FMTS = [("f32", 0), ("bf16", 0), ("int8", 0), ("residual", 8),
+               ("residual", 1)]
+
+
+def _reveal_corpus(gen, D, L, M, fmt, Kc, holes):
+    """Unit-norm rows in ``fmt``, doc 0 all-masked; with ``holes`` every
+    doc's valid tokens are a random third-free subset, not a prefix."""
+    if fmt in ("f32", "bf16"):
+        e, m = _docs(gen, D, L, M, torch.float32)
+        e = _unit(e).to(torch.bfloat16 if fmt == "bf16" else torch.float32)
+        e = e.contiguous()
+    else:
+        e, m = _quant_docs(gen, D, L, M, fmt, Kc or 8)
+    if holes:
+        m = torch.rand((D, L), generator=gen, device="cuda") < 0.6
+        m[0] = False
+    return e, m.contiguous()
+
+
+def _reveal_all(e, m, q, di, ti, nm):
+    """gather and fused values of the float or _q entry points, checked
+    equal, and the fused stats."""
+    quant = not isinstance(e, torch.Tensor)
+    gather = gather_maxsim_q_cuda if quant else gather_maxsim_cuda
+    fused = fused_reveal_q_cuda if quant else fused_reveal_cuda
+    vals = gather(e, m, q, di, ti)
+    fv, fs = fused(e, m, q, di, ti, nm)
+    assert torch.equal(fv, vals)
+    return vals, fs
+
+
+def _maxsim_cells(e, m, q, di, ti):
+    """The dense maxsim kernel's cells (doc di[f], query row ti[f, g])."""
+    F = di.shape[0]
+    md = m[di][None].contiguous()
+    if isinstance(e, torch.Tensor):
+        h = maxsim_batch_cuda(e[di][None].contiguous(), md, q[None])
+    else:
+        h = maxsim_batch_q_cuda(corpus_reshape(corpus_index(e, di), 1, F), md,
+                                q[None])
+    return torch.gather(h[0], 1, ti)
+
+
+@pytest.mark.parametrize("fmt,Kc", REVEAL_FMTS)
+@pytest.mark.parametrize("F,G,L,M,holes", [
+    (128, 8, 128, 128, False), (64, 8, 200, 128, True),
+    (37, 3, 77, 100, True), (16, 64, 128, 128, False)])
+def test_reveal_cells_equal_the_dense_maxsim_cells(card, fmt, Kc, F, G, L,
+                                                   M, holes):
+    """All four reveal entry points give the dense maxsim kernel's cells bit
+    for bit: L=200 spans several staging chunks, holes make the valid
+    tokens no prefix, M=100 int8 rows are not 16-byte aligned."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    D, TQ = 256, 64
+    e, m = _reveal_corpus(gen, D, L, M, fmt, Kc, holes)
+    q = _unit(torch.randn((TQ, M), generator=gen, device=card))
+    if fmt == "bf16":
+        q = q.to(torch.bfloat16)
+    di = torch.randint(0, D, (F,), generator=gen, device=card)
+    di[0] = 0
+    ti = torch.randint(0, TQ, (F, G), generator=gen, device=card)
+    nm = torch.rand((F, G), generator=gen, device=card) < 0.5
+    vals, fs = _reveal_all(e, m, q, di, ti, nm)
+    assert torch.equal(vals, _maxsim_cells(e, m, q, di, ti))
+    assert float(vals[0].max()) == float(np.float32(-3e38))
+    torch.testing.assert_close(vals, gather_maxsim_plain(e, m, q, di, ti),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(fs, fused_reveal_plain(e, m, q, di, ti, nm)[1],
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fmt,Kc", REVEAL_FMTS)
+def test_reveal_cell_is_independent_of_G_and_row_order(card, fmt, Kc):
+    """A cell's value depends only on (doc row, query row): the same at
+    G=8 and G=1, and under a permutation of the frontier rows."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    D, TQ, F, G, L, M = 128, 32, 96, 8, 150, 128
+    e, m = _reveal_corpus(gen, D, L, M, fmt, Kc, True)
+    q = _unit(torch.randn((TQ, M), generator=gen, device=card))
+    if fmt == "bf16":
+        q = q.to(torch.bfloat16)
+    di = torch.randint(0, D, (F,), generator=gen, device=card)
+    ti = torch.randint(0, TQ, (F, G), generator=gen, device=card)
+    nm = torch.rand((F, G), generator=gen, device=card) < 0.5
+    vals, _ = _reveal_all(e, m, q, di, ti, nm)
+    for g in range(G):
+        one, _ = _reveal_all(e, m, q, di, ti[:, g:g + 1].contiguous(),
+                             nm[:, g:g + 1].contiguous())
+        assert torch.equal(one[:, 0], vals[:, g])
+    perm = torch.randperm(F, generator=gen, device=card)
+    pv, _ = _reveal_all(e, m, q, di[perm].contiguous(),
+                        ti[perm].contiguous(), nm[perm].contiguous())
+    assert torch.equal(pv, vals[perm])
+
+
+def test_reveal_raises_beyond_64_query_rows(card):
+    """G is at most 64; a larger G raises before any launch."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    e, m = _docs(gen, 8, 16, 32, torch.float32)
+    q = torch.randn((4, 32), generator=gen, device=card)
+    di = torch.zeros((2,), dtype=torch.int64, device=card)
+    _build.reset_launches()
+    for G, ok in ((64, True), (65, False)):
+        ti = torch.zeros((2, G), dtype=torch.int64, device=card)
+        if ok:
+            gather_maxsim_cuda(e, m, q, di, ti)
+        else:
+            with pytest.raises(ValueError, match="exceed"):
+                gather_maxsim_cuda(e, m, q, di, ti)
+    assert _build.LAUNCHES["gather_maxsim"] == 1
