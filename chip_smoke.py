@@ -11,10 +11,11 @@ Phases, in order:
      Each kernel with a compressed-corpus (``_q``) entry point is also run on
      int8 and residual corpora and held to its float32 twin on the
      dequantized corpus bit for bit; every reveal cell is held to the dense
-     ``maxsim`` kernel's cell bit for bit, and the reveal entry points'
-     round and init launches are timed on the device alone (profiler
-     records, L2 flushed before each launch) and for the wrapper's host
-     cost alone;
+     ``maxsim`` kernel's cell bit for bit, and each dense cell to the same
+     doc launched alone; the reveal entry points' round and init launches
+     and the dense ``maxsim`` / ``maxsim_q`` launches at the serving shape
+     are timed on the device alone (profiler records, L2 flushed before
+     each launch), the reveal wrappers also for their host cost alone;
   4. main path: ``serve_queries`` dense and bandit (fused and chain round
      bodies) over a 65,536-doc corpus at the text config's widths (T=32,
      L=128, M=128), with launch counts, cross-checks, throughput and a
@@ -28,7 +29,8 @@ Phases, in order:
      candidate slab of phase 4 (256 docs, a seeded tile mask at density
      0.4), checked against the plain version; (b) one bulk launch over the
      resident 65,536-doc f32, int8 and residual corpora against query 0 at
-     tile densities 0, 0.1, 0.4 and 1, timed beside the dense kernel.
+     tile densities 0, 0.1, 0.4 and 1, timed beside the dense kernel
+     (whose device time and bound are printed too).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -277,34 +279,51 @@ def main() -> int:
         flops_valid = sum(int(m[s[0]].sum()) for s in sets) / n
         return flops_valid, valid / n, docs / n, toks / n
 
-    # maxsim: edge cases, then the dense path's shape (B=16, N=256).
+    # maxsim: the dense path's shape (B=16, N=256), then edge cases: docs
+    # per block not dividing N, ragged lengths and holes across the 64-token
+    # chunk edges, query passes of 32 tokens (T = 45, 64).
     cases = [("slice", 16, 256, 128, 32, 128, torch.float32),
              ("bf16", 16, 256, 128, 32, 128, torch.bfloat16),
              ("odd", 3, 5, 77, 19, 100, torch.float32),
-             ("two-passes", 2, 7, 40, 45, 64, torch.float32)]
+             ("two-passes", 2, 7, 40, 45, 64, torch.float32),
+             ("holes T=64", 2, 9, 200, 64, 128, torch.float32)]
     for label, Bq, N, L, T, M, dt in cases:
         e, m = corpus_like(gen, Bq * N, L, M, dt, min(32, L), dead=(1,))
-        e, m = e.reshape(Bq, N, L, M), m.reshape(Bq, N, L)
+        if label.startswith("holes"):
+            m = torch.rand((Bq * N, L), generator=gen, device="cuda") < 0.6
+            m[1] = False
+        e, m = e.reshape(Bq, N, L, M), m.reshape(Bq, N, L).contiguous()
         q = unit_rows(gen, (Bq, T, M)).to(dt)
         got = maxsim_batch_cuda(e, m, q)
         err = check_close(f"maxsim {label}", got, maxsim_batch_plain(e, m, q))
         if float(got[0, 1].max()) != NEG:
             fail("maxsim: an all-masked doc must give -3e38")
+        # A cell depends on neither the doc's place in the launch nor the
+        # docs beside it: each doc alone in a batch of its own.
+        alone = maxsim_batch_cuda(e.reshape(Bq * N, 1, L, M),
+                                  m.reshape(Bq * N, 1, L),
+                                  q.repeat_interleave(N, 0))
+        if not torch.equal(alone.reshape(got.shape), got):
+            fail(f"maxsim {label}: a cell moved with the launch's shape")
         print(f"kernel maxsim {label} B={Bq} N={N} L={L} T={T} M={M} "
               f"{str(dt)[6:]}: max_abs_err={err:.3g} ok (rtol={RTOL}, "
-              f"atol={ATOL})", flush=True)
+              f"atol={ATOL}); == one doc per batch bit for bit", flush=True)
         if label == "slice":
             valid = int(m.sum())
             nbytes = valid * M * 4 + m.numel() + q.numel() * 4 + got.numel() * 4
             b_ms, b_by = bound(nbytes, 2 * T * M * valid)
+            fn = functools.partial(maxsim_batch_cuda, e, m, q)
             records["maxsim"] = dict(
                 name="maxsim", route="cuda",
                 source="src/repro_torch/kernels/csrc/maxsim.cu",
                 replaces="src/repro/kernels/maxsim.py:87", max_abs_err=err,
-                ms=cuda_ms(lambda: maxsim_batch_cuda(e, m, q)),
+                ms=cuda_ms(fn),
                 plain_ms=cuda_ms(lambda: maxsim_batch_plain(e, m, q),
                                  reps=5, inner=3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                device_ms=device_ms(fn, "maxsim_kernel<DenseRows"))
+            print(f"timing maxsim slice: {json.dumps(records['maxsim'])}",
+                  flush=True)
 
     # gather_maxsim / fused_reveal: stacked (B*N, L, M) candidates and
     # (B*T, M) query tokens, frontier rows F with G tokens each.
@@ -423,11 +442,15 @@ def main() -> int:
 
     q_formats = [("int8", 0), ("residual", 8), ("residual", 1)]
     maxsim_q_cases = [("slice", 16, 256, 128, 32, 128),
-                      ("odd", 3, 5, 77, 45, 100)]
+                      ("odd", 3, 5, 77, 45, 100),
+                      ("holes T=64", 2, 9, 200, 64, 100)]
     for fmt, Kc in q_formats:
         for label, Bq, N, L, T, M in maxsim_q_cases:
             qt, m = quant_like(Bq * N, L, M, fmt, Kc, dead=(1,))
-            qt, m = corpus_reshape(qt, Bq, N), m.reshape(Bq, N, L)
+            if label.startswith("holes"):
+                m = torch.rand((Bq * N, L), generator=gen, device="cuda") < 0.6
+                m[1] = False
+            qt, m = corpus_reshape(qt, Bq, N), m.reshape(Bq, N, L).contiguous()
             q = unit_rows(gen, (Bq, T, M))
             got = maxsim_batch_q_cuda(qt, m, q)
             tag = f"maxsim_q {fmt} Kc={Kc} {label}"
@@ -446,14 +469,15 @@ def main() -> int:
                       + got.numel() * 4)
             b_ms, b_by = bound(nbytes, 2 * T * M * valid
                                + dequant_ops(qt, valid, M))
+            fn = functools.partial(maxsim_batch_q_cuda, qt, m, q)
             rec = dict(name="maxsim_q", route="cuda",
                        source="src/repro_torch/kernels/csrc/maxsim.cu",
                        replaces="src/repro/kernels/maxsim.py:54",
-                       max_abs_err=err,
-                       ms=cuda_ms(lambda: maxsim_batch_q_cuda(qt, m, q)),
+                       max_abs_err=err, ms=cuda_ms(fn),
                        plain_ms=cuda_ms(lambda: maxsim_batch_plain(qt, m, q),
                                         reps=5, inner=3),
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       device_ms=device_ms(fn, "maxsim_kernel<QuantRows"))
             print(f"timing maxsim_q {fmt} {label}: {json.dumps(rec)}",
                   flush=True)
             if fmt == "int8":
@@ -976,6 +1000,17 @@ def main() -> int:
         e1 = corpus_reshape(e, 1, n_docs)
         twin = twin_fn(e1, m[None], q0[None])[0]
         dense_ms = cuda_ms(lambda: twin_fn(e1, m[None], q0[None]))
+        valid, M = int(m.sum()), e.shape[-1]
+        nbytes = ((quant_bytes(e, valid, M) if quant else valid * M * 4)
+                  + m.numel() + q0.numel() * 4 + n_docs * 32 * 4)
+        b_ms, b_by = bound(nbytes, 2 * 32 * M * valid
+                           + (dequant_ops(e, valid, M) if quant else 0))
+        dev_ms = device_ms(lambda: twin_fn(e1, m[None], q0[None]),
+                           "maxsim_kernel<" + ("QuantRows" if quant
+                                               else "DenseRows"), n=5)
+        print(f"phase 6b {fmt} dense twin N={n_docs} T=32: {dense_ms:.4f} ms "
+              f"(events), device {dev_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
         for d in densities:
             tm = bulk_tm[d]
             got = got_b[fmt, d]

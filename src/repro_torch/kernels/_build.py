@@ -56,6 +56,7 @@ _ENTRY_POINTS = {
                    _P]),
     ),
     "maxsim.cu": (
+        ("colbandit_maxsim_smem_bytes", [_I, _I, _I, _I, _I], _LL),
         ("colbandit_maxsim",
          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         ("colbandit_maxsim_q",

@@ -4,17 +4,23 @@ CUDA kernel ``csrc/maxsim.cu`` (``colbandit_maxsim``) replaces the TPU
 kernel ``src/repro/kernels/maxsim.py:maxsim`` (``_maxsim_kernel``), which
 ``ops.maxsim_batch_op`` vmapped over the query batch; here the batch is a
 grid axis of one launch. Bound on the H100: device-memory bytes and the
-f32 issue rate about equally at T = 32, M = 128 (16 flop per doc byte
-against a ridge of ~20); the design notes are in the source. The
-(B, N, L, T) similarity tensor is never built.
+f32 issue rate about equally at T = 32, M = 128 (16 flop per valid doc
+byte against a ridge of ~20). The body compacts each doc's valid tokens,
+stages them with ``cp.async`` two chunks ahead, and register-tiles the
+product (4 doc rows x 4 query rows a thread); the design notes are in the
+source. The (B, N, L, T) similarity tensor is never built.
 
 ``colbandit_maxsim_q`` (same source, same body) replaces the quantized TPU
 kernel ``_maxsim_q_kernel``: it reads a ``QuantTokens`` corpus (int8 rows,
 per-row scales, optional centroid codes into a codebook shared across the
-batch) and dequantizes each doc tile as it fills shared memory. Bound on
-the H100: operations (~63 flop per int8 byte at the serving shape, above
-the ridge). Its values equal ``colbandit_maxsim`` on the dequantized
-corpus bit for bit.
+batch), stages the int8 rows raw and dequantizes each element once into
+an f32 tile. Bound on the H100: operations (~63 flop per int8 byte at the
+serving shape, above the ridge). Its values equal ``colbandit_maxsim`` on
+the dequantized corpus bit for bit.
+
+The shared memory a launch needs comes from the kernel's own
+``colbandit_maxsim_smem_bytes``; a size beyond the card's raises
+ValueError before any launch.
 
 ``maxsim_batch_plain`` is the plain PyTorch version of both
 (``kernels/ref.py``'s ``maxsim_batch_ref``: an L-chunked running max that
@@ -31,7 +37,10 @@ from repro_torch.kernels.quant import QuantTokens, dense_rows, dequant_block
 _NEG = -3e38
 
 
-def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_extra=0):
+def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_bytes):
+    """Validate the operands of a maxsim-family launch and return its empty
+    (B, N, T) f32 output. ``smem_bytes(L, M)`` is the shared memory one
+    block of the kernel takes; more than the card's raises ValueError."""
     _build.require(len(doc_embs.shape) == 4 and queries.dim() == 3
                    and doc_tok_mask.dim() == 3, name,
                    "expected doc_embs (B,N,L,M), doc_tok_mask (B,N,L), "
@@ -46,13 +55,22 @@ def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_extra=0):
                    "queries must be float32/bfloat16, the mask bool")
     _build.require(queries.is_contiguous() and doc_tok_mask.is_contiguous(),
                    name, "operands must be contiguous")
-    smem = (M * 64 + 256 + smem_extra) * 4
-    _build.require(B <= 65535 and N < 2 ** 31
-                   and smem <= _build.SHARED_MEM_BYTES, name,
-                   f"unsupported sizes B={B}, N={N}, M={M} ({smem} bytes of "
-                   "shared memory)")
+    _build.require(B <= 65535 and N < 2 ** 31, name,
+                   f"unsupported sizes B={B}, N={N}")
+    smem = smem_bytes(L, M)
+    _build.require(smem <= _build.SHARED_MEM_BYTES, name,
+                   f"L={L}, M={M} need {smem} bytes of shared memory")
     return torch.empty((B, N, queries.shape[1]), dtype=torch.float32,
                        device=queries.device)
+
+
+def _dense_smem(elem_bytes: int, kc: int = 0, scaled: bool = False):
+    """``smem_bytes`` of the dense body for rows of ``elem_bytes`` bytes an
+    element (scaled rows and ``kc`` codebook rows for ``_q``)."""
+    def smem_bytes(L, M):
+        return _build.library("maxsim.cu").colbandit_maxsim_smem_bytes(
+            L, M, elem_bytes, int(scaled), kc)
+    return smem_bytes
 
 
 def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
@@ -64,10 +82,11 @@ def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     _build.require(isinstance(doc_embs, torch.Tensor), name,
                    "a QuantTokens corpus goes to maxsim_batch_q_cuda")
     dev = _build.require_cuda(name, doc_embs, doc_tok_mask, queries)
-    out = _check_maxsim(name, doc_embs, doc_tok_mask, queries)
     _build.require(doc_embs.dtype in _build.FLOAT_TYPES
                    and doc_embs.is_contiguous(), name,
                    "doc_embs must be contiguous float32/bfloat16")
+    out = _check_maxsim(name, doc_embs, doc_tok_mask, queries,
+                        _dense_smem(doc_embs.element_size()))
     if out.numel() == 0:
         return out
     B, N, L, M = doc_embs.shape
@@ -95,7 +114,7 @@ def maxsim_batch_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
     qargs, s_bf16 = _build.quant_args(name, doc_embs)
     M = doc_embs.shape[-1]
     out = _check_maxsim(name, doc_embs, doc_tok_mask, queries,
-                        smem_extra=qargs[-1] * M)
+                        _dense_smem(1, qargs[-1], scaled=True))
     if out.numel() == 0:
         return out
     B, N, L, _ = doc_embs.shape

@@ -68,7 +68,10 @@ def _docs(gen, D, L, M, dtype, dead=(0,)):
 @pytest.mark.parametrize("B,N,L,T,M,dtype", [
     (4, 32, 128, 32, 128, torch.float32),
     (4, 32, 128, 32, 128, torch.bfloat16),
-    (3, 5, 77, 45, 100, torch.float32)])
+    (3, 5, 77, 45, 100, torch.float32),
+    (2, 7, 200, 40, 64, torch.float32),
+    (1, 9, 130, 64, 128, torch.float32),
+    (2, 5, 128, 64, 128, torch.bfloat16)])
 def test_maxsim_kernel_matches_plain(card, B, N, L, T, M, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
     e, m = _docs(gen, B * N, L, M, dtype)
@@ -155,7 +158,9 @@ QFMTS = [("int8", 8, torch.bfloat16), ("residual", 8, torch.bfloat16),
 
 @pytest.mark.parametrize("fmt,Kc,sdt", QFMTS)
 @pytest.mark.parametrize("B,N,L,T,M", [(4, 32, 128, 32, 128),
-                                       (3, 5, 77, 45, 100)])
+                                       (3, 5, 77, 45, 100),
+                                       (2, 7, 200, 40, 128),
+                                       (1, 9, 130, 64, 100)])
 def test_maxsim_q_matches_plain_and_its_f32_twin(card, fmt, Kc, sdt, B, N,
                                                  L, T, M):
     gen = torch.Generator(device=card).manual_seed(3)
@@ -437,3 +442,61 @@ def test_reveal_raises_beyond_64_query_rows(card):
             with pytest.raises(ValueError, match="exceed"):
                 gather_maxsim_cuda(e, m, q, di, ti)
     assert _build.LAUNCHES["gather_maxsim"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the dense body: compacted chunks, several docs a block, query passes
+# ---------------------------------------------------------------------------
+
+EDGE_LENS = (0, 1, 63, 64, 65, 127, 128, 129, 200)   # around 64-token chunks
+
+
+@pytest.mark.parametrize("fmt,Kc", [("f32", 0), ("bf16", 0), ("int8", 0),
+                                    ("residual", 8)])
+@pytest.mark.parametrize("T,M", [(32, 128), (64, 100)])
+@pytest.mark.parametrize("holes", [False, True])
+def test_maxsim_cells_are_independent_of_the_launch(card, fmt, Kc, T, M,
+                                                    holes):
+    """The dense kernels on docs whose valid tokens end at the chunk edges
+    (or are a random subset): each cell equals the same doc launched alone
+    bit for bit, whatever its neighbours in a block, and the plain
+    version within tolerance; a _q cell equals the f32 kernel's on the
+    dequantized corpus."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    N, L = len(EDGE_LENS), 200
+    e, _ = _reveal_corpus(gen, N, L, M, fmt, Kc, False)
+    lens = torch.tensor(EDGE_LENS, device=card)
+    m = torch.arange(L, device=card)[None] < lens[:, None]
+    if holes:
+        m = m & (torch.rand((N, L), generator=gen, device=card) < 0.6)
+    m = m.contiguous()
+    q = _unit(torch.randn((T, M), generator=gen, device=card))
+    if fmt == "bf16":
+        q = q.to(torch.bfloat16)
+    quant = not isinstance(e, torch.Tensor)
+    kernel = maxsim_batch_q_cuda if quant else maxsim_batch_cuda
+    got = kernel(corpus_reshape(e, 1, N), m[None], q[None])[0]
+    alone = kernel(corpus_reshape(e, N, 1), m[:, None].contiguous(),
+                   q[None].expand(N, T, M).contiguous())[:, 0]
+    assert torch.equal(got, alone)
+    torch.testing.assert_close(got, maxsim_batch_plain(
+        corpus_reshape(e, 1, N), m[None], q[None])[0], rtol=RTOL, atol=ATOL)
+    assert (got[0] == float(np.float32(-3e38))).all()
+    if quant:
+        assert torch.equal(got, maxsim_batch_cuda(
+            dequantize(e)[None], m[None], q[None])[0])
+
+
+def test_maxsim_raises_beyond_shared_memory(card):
+    """A residual codebook too large for one block's shared memory raises
+    before any launch; nothing falls back."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    qt, m = _quant_docs(gen, 8, 16, 32, "residual")
+    q = torch.randn((1, 4, 32), generator=gen, device=card)
+    big = qt._replace(codebook=torch.zeros((2048, 32), device=card))
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        maxsim_batch_q_cuda(corpus_reshape(big, 1, 8), m[None], q)
+    assert not any(_build.LAUNCHES.values())
+    maxsim_batch_q_cuda(corpus_reshape(qt, 1, 8), m[None], q)
+    assert _build.LAUNCHES["maxsim_q"] == 1

@@ -1,11 +1,12 @@
-// Host stand-ins for the CUDA features reveal.cu uses, for the g++
-// rehearsal (run.sh). Each block runs as blockDim host threads, one block
+// Host stand-ins for the CUDA features reveal.cu and maxsim.cu use, for
+// the g++ rehearsal (run.sh). Each block runs as blockDim host threads, one block
 // after another; __syncthreads is a std::barrier of the block, and the warp
 // intrinsics exchange values through a second barrier per warp, so a
 // barrier that not every thread reaches hangs here as it would on the card.
 #pragma once
 #include <stdint.h>
 
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdlib>
@@ -24,7 +25,9 @@
 #define __launch_bounds__(...)
 
 struct dim3 {
-  unsigned x = 0, y = 0, z = 0;
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
 };
 struct uint4 {
   unsigned x, y, z, w;
@@ -65,6 +68,7 @@ struct BlockSync {
   std::unique_ptr<std::barrier<>> warp[32];
   unsigned wval[32][32];
   float fval[32][32];
+  std::atomic<int> any{0};  // __syncthreads_or's vote
   explicit BlockSync(int threads) : block(threads) {
     for (auto& w : warp) w = std::make_unique<std::barrier<>>(32);
   }
@@ -75,6 +79,14 @@ inline long long g_barriers = 0;  // __syncthreads per run, for the report
 inline void __syncthreads() {
   if (threadIdx.x == 0) ++g_barriers;
   g_sync->block.arrive_and_wait();
+}
+inline int __syncthreads_or(int p) {
+  __syncthreads();  // everyone has read the previous vote
+  if (threadIdx.x == 0) g_sync->any.store(0);
+  __syncthreads();
+  if (p) g_sync->any.store(1);
+  __syncthreads();
+  return g_sync->any.load();
 }
 inline unsigned __ballot_sync(unsigned, bool p) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -99,21 +111,23 @@ alignas(16) inline unsigned char smem_host[256 * 1024];
 inline size_t g_smem_max = 0;  // largest launch, for the report
 
 template <typename K, typename... A>
-void host_launch(K kernel, int grid, int threads, size_t smem, void*,
+void host_launch(K kernel, dim3 grid, int threads, size_t smem, void*,
                  A... args) {
   if (smem > sizeof(smem_host) || threads > 1024) std::abort();
   if (smem > g_smem_max) g_smem_max = smem;
-  for (int b = 0; b < grid; ++b) {
-    std::memset(smem_host, 0xCD, sizeof(smem_host));
-    BlockSync sync(threads);
-    g_sync = &sync;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([=] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        kernel(args...);
-      });
-    for (auto& t : ts) t.join();
-  }
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      std::memset(smem_host, 0xCD, sizeof(smem_host));
+      BlockSync sync(threads);
+      g_sync = &sync;
+      std::vector<std::thread> ts;
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([=] {
+          threadIdx.x = t;
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          kernel(args...);
+        });
+      for (auto& t : ts) t.join();
+    }
 }

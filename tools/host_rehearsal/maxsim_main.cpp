@@ -1,0 +1,187 @@
+// Host rehearsal program (run.sh): the dense entry points of maxsim.cu on
+// small shapes, every cell held bit for bit to a direct reference (one
+// sequential fma chain over m from 0, nan-propagating max over the valid
+// tokens, -3e38 for an all-masked doc), and the masked entry points held to
+// where(tile, reference, 0). Covers f32 and bf16 rows and queries, int8
+// rows with f32 and bf16 scales, residual rows with Kc = 8 and 1 and
+// clamped codes, rows that are not 16-byte aligned (M = 100 int8 rows in
+// 4-byte pieces, M = 33 in single bytes), M not a multiple of 4, docs
+// across chunk edges, masks with holes, an all-masked doc in every case, N
+// not a multiple of the docs per block, and T = 40 and 64 (two passes).
+#include <algorithm>
+#include <cstdio>
+#include <random>
+#include <vector>
+
+#include "src/maxsim.cpp"  // the prepared copy of maxsim.cu (run.sh)
+
+namespace {
+
+std::mt19937 rng(0);
+float urand() { return std::uniform_real_distribution<float>(-1, 1)(rng); }
+__nv_bfloat16 to_bf16(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  return {uint16_t(u >> 16)};
+}
+
+enum Kind { kF32, kBf16, kInt8F32Scales, kInt8Bf16Scales, kResidual };
+
+struct Case {
+  const char* name;
+  int B, N, L, T, M;
+  Kind kind;
+  int Kc;
+  bool holes;       // valid tokens a random subset, not a prefix
+  bool masked = false;  // also run the masked entry point (B = 1)
+};
+
+int run(const Case& c) {
+  const int B = c.B, N = c.N, L = c.L, T = c.T, M = c.M, D = B * N;
+  const bool quant = c.kind >= kInt8F32Scales;
+  std::vector<uint8_t> mask(D * L);
+  for (int d = 0; d < D; ++d) {
+    // Lengths around the 64-token chunk edge, and 1 and L.
+    const int lens[] = {1, 63, 64, 65, 128, L};
+    const int len = std::min(L, d < 6 ? lens[d] : 1 + int(rng() % L));
+    for (int l = 0; l < L; ++l)
+      mask[d * L + l] = c.holes ? (rng() % 3 != 0) : (l < len);
+  }
+  std::fill(mask.begin() + 1 * L, mask.begin() + 2 * L, 0);  // doc 1: empty
+  std::vector<float> Ef(D * L * M);
+  for (auto& x : Ef) x = urand();
+  std::vector<__nv_bfloat16> Eb(Ef.size());
+  for (size_t i = 0; i < Ef.size(); ++i) Eb[i] = to_bf16(Ef[i]);
+  // An odd M starts the int8 payload one byte in: rows byte-aligned only.
+  std::vector<int8_t> data(Ef.size() + 16);
+  int8_t* dp = data.data() + (M % 2 ? 1 : 0);
+  for (size_t i = 0; i < Ef.size(); ++i) dp[i] = int(rng() % 255) - 127;
+  std::vector<float> sc(D * L);
+  std::vector<__nv_bfloat16> scb(D * L);
+  std::vector<int32_t> codes(D * L);
+  for (int i = 0; i < D * L; ++i) {
+    scb[i] = to_bf16(urand() * 0.01f);
+    sc[i] = __bfloat162float(scb[i]);  // the same scales in either type
+    codes[i] = int(rng() % (c.Kc + 2)) - 1;  // -1 and Kc are clamped
+  }
+  std::vector<float> cb(std::max(c.Kc, 1) * M);
+  for (auto& x : cb) x = urand();
+  std::vector<float> Q(B * T * M);
+  std::vector<__nv_bfloat16> Qb(Q.size());
+  for (size_t i = 0; i < Q.size(); ++i) {
+    Qb[i] = to_bf16(urand());
+    Q[i] = c.kind == kBf16 ? __bfloat162float(Qb[i]) : urand();
+  }
+
+  auto elem = [&](int64_t r, int m) -> float {
+    switch (c.kind) {
+      case kF32: return Ef[r * M + m];
+      case kBf16: return __bfloat162float(Eb[r * M + m]);
+      case kInt8F32Scales:
+      case kInt8Bf16Scales: return __fmul_rn((float)dp[r * M + m], sc[r]);
+      default: {
+        const int k = std::clamp(codes[r], 0, c.Kc - 1);
+        return __fadd_rn(__fmul_rn((float)dp[r * M + m], sc[r]),
+                         cb[k * M + m]);
+      }
+    }
+  };
+  std::vector<float> want(D * T);
+  for (int d = 0; d < D; ++d) {
+    const int b = d / N;
+    for (int t = 0; t < T; ++t) {
+      float run = -3e38f;
+      for (int l = 0; l < L; ++l) {
+        if (!mask[d * L + l]) continue;
+        float acc = 0.f;
+        for (int m = 0; m < M; ++m)
+          acc = std::fma(elem((int64_t)d * L + l, m),
+                         Q[((int64_t)b * T + t) * M + m], acc);
+        run = (acc > run || acc != acc) ? acc : run;
+      }
+      want[d * T + t] = run;
+    }
+  }
+
+  const int q_bf16 = c.kind == kBf16;
+  const void* Qp = q_bf16 ? (const void*)Qb.data() : (const void*)Q.data();
+  const int s_bf16 = c.kind != kInt8F32Scales;
+  const void* scales = s_bf16 ? (const void*)scb.data()
+                              : (const void*)sc.data();
+  const int32_t* cd = c.kind == kResidual ? codes.data() : nullptr;
+  const float* cbp = c.kind == kResidual ? cb.data() : nullptr;
+  const void* E = c.kind == kF32 ? (const void*)Ef.data()
+                                 : (const void*)Eb.data();
+  std::vector<float> got(D * T, 7.f);
+  int rc = quant ? colbandit_maxsim_q(dp, scales, cd, cbp, c.Kc, mask.data(),
+                                      Qp, got.data(), B, N, L, M, T, s_bf16,
+                                      0, nullptr)
+                 : colbandit_maxsim(E, mask.data(), Qp, got.data(), B, N, L,
+                                    M, T, q_bf16, q_bf16, nullptr);
+  const size_t launched = g_smem_max;
+  int bad = rc != 0;
+  for (int i = 0; i < D * T; ++i)
+    if (std::memcmp(&got[i], &want[i], 4)) {
+      if (bad < 5) printf("  cell %d: %.9g want %.9g\n", i, got[i], want[i]);
+      ++bad;
+    }
+  const int esz = c.kind == kF32 ? 4 : c.kind == kBf16 ? 2 : 1;
+  const long long smem = colbandit_maxsim_smem_bytes(
+      L, M, esz, quant, c.kind == kResidual ? c.Kc : 0);
+  bad += smem != (long long)launched;
+  const long long barriers = g_barriers;
+
+  int masked_bad = 0;
+  if (c.masked) {  // bn = 4, bt = 8: random tiles, doc 1's all active
+    const int bn = 4, bt = 8, gi = (N + bn - 1) / bn, gj = (T + bt - 1) / bt;
+    std::vector<uint8_t> tiles(gi * gj);
+    for (auto& x : tiles) x = rng() % 5 < 2;
+    for (int j = 0; j < gj; ++j) tiles[j] = 1;
+    std::vector<float> mg(N * T, 7.f);
+    rc = quant ? colbandit_masked_maxsim_q(dp, scales, cd, cbp, c.Kc,
+                                           mask.data(), Qp, tiles.data(),
+                                           mg.data(), N, L, M, T, bn, bt,
+                                           s_bf16, 0, nullptr)
+               : colbandit_masked_maxsim(E, mask.data(), Qp, tiles.data(),
+                                         mg.data(), N, L, M, T, bn, bt,
+                                         q_bf16, q_bf16, nullptr);
+    masked_bad = rc != 0;
+    for (int i = 0; i < N; ++i)
+      for (int t = 0; t < T; ++t) {
+        const float w = tiles[(i / bn) * gj + t / bt] ? want[i * T + t] : 0.f;
+        if (std::memcmp(&mg[i * T + t], &w, 4)) ++masked_bad;
+      }
+  }
+  printf("%-28s B=%d N=%d L=%d T=%d M=%d: %s%s (smem %lld, launched %zu, "
+         "barriers %lld, cp.async copies of 16/8/4 bytes: %lld/%lld/%lld)\n",
+         c.name, B, N, L, T, M, bad ? "FAIL" : "bit-equal",
+         !c.masked ? "" : masked_bad ? "; masked FAIL"
+                                     : "; masked == where(tile, ref, 0)",
+         smem, launched, barriers, g_async_copies[16], g_async_copies[8],
+         g_async_copies[4]);
+  g_smem_max = 0;
+  g_barriers = 0;
+  std::memset(g_async_copies, 0, sizeof(g_async_copies));
+  return bad + masked_bad;
+}
+
+}  // namespace
+
+int main() {
+  const Case cases[] = {
+      {"f32 serving widths", 2, 5, 128, 32, 128, kF32, 0, false, false},
+      {"f32 L=200 holes T=40", 1, 7, 200, 40, 64, kF32, 0, true, true},
+      {"f32 T=64 M=32", 1, 6, 130, 64, 32, kF32, 0, false, false},
+      {"bf16 M=77 T=19", 2, 3, 77, 19, 77, kBf16, 0, false, true},
+      {"int8 f32 scales M=100 T=40", 1, 6, 100, 40, 100, kInt8F32Scales, 0,
+       false, false},
+      {"int8 bf16 scales M=33", 1, 6, 70, 8, 33, kInt8Bf16Scales, 0, true,
+       true},
+      {"residual Kc=8", 2, 3, 128, 32, 128, kResidual, 8, true, false},
+      {"residual Kc=1 M=100", 1, 6, 77, 45, 100, kResidual, 1, false, true},
+  };
+  int bad = 0;
+  for (const Case& c : cases) bad += run(c) != 0;
+  printf(bad ? "MAXSIM REHEARSAL FAILED\n" : "maxsim rehearsal ok\n");
+  return bad != 0;
+}
