@@ -5,7 +5,9 @@
 
 Phases, in order:
   1. device: the card's name and power limit (``nvidia-smi``);
-  2. build: ``nvcc`` compiles the kernels from ``src/repro_torch/kernels/csrc``;
+  2. build: ``nvcc`` compiles the kernels from ``src/repro_torch/kernels/csrc``
+     (ptxas registers and spills per instantiation; a spill in ``maxsim.cu``
+     fails the run);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at the serving path's shapes plus edge cases, with timings and bounds;
      Each kernel with a compressed-corpus (``_q``) entry point is also run on
@@ -40,6 +42,7 @@ reference product runs in full float32.
 import contextlib
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -193,6 +196,7 @@ def main() -> int:
     # 2. build ---------------------------------------------------------------
     secs = _build.build()
     print(f"build: {secs:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
+    spilled = []
     for src, log in _build.BUILD_LOG.items():
         # ptxas -v: "Function properties for <name>", then the stack/spill
         # line, then "Used N registers"; one line per kernel instantiation.
@@ -205,6 +209,16 @@ def main() -> int:
             elif "registers" in line:
                 print(f"  ptxas {src}: {demangle(fn)}: {spill}; "
                       f"{line.split(':', 1)[-1].strip()}")
+                n = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", spill)
+                if src == "maxsim.cu" and (n is None or int(n[1])
+                                           or int(n[2])):
+                    spilled.append(demangle(fn))
+    if spilled:
+        fail(f"ptxas: maxsim.cu instantiations spill: {spilled}")
+    if "maxsim.cu" not in _build.BUILD_LOG:
+        print("  ptxas maxsim.cu: not built in this process (a cached "
+              "library), so its spills are not checked", flush=True)
 
     # 3. kernels against their plain versions ---------------------------------
     from torch.autograd import DeviceType
@@ -602,12 +616,16 @@ def main() -> int:
         masked_err[kname] = max(masked_err[kname], err)
         return err
 
-    masked_cases = [("slab", 256, 128, 32, 128, 8, "random"),
-                    ("odd", 5, 77, 19, 100, 4, "random"),
-                    ("none", 256, 128, 32, 128, 8, "none"),
-                    ("all", 256, 128, 32, 128, 8, "all")]
+    # bn = 3 puts the two docs of a block in different tile rows; bt = 40
+    # spans both 32-row passes of T = 64, so a pass can have no active tile.
+    masked_cases = [("slab", 256, 128, 32, 128, 8, 8, "random"),
+                    ("odd", 5, 77, 19, 100, 4, 4, "random"),
+                    ("none", 256, 128, 32, 128, 8, 8, "none"),
+                    ("all", 256, 128, 32, 128, 8, 8, "all"),
+                    ("straddle", 7, 77, 32, 100, 3, 8, "random"),
+                    ("bt=40 T=64", 9, 100, 64, 128, 3, 40, "random")]
     for fmt, Kc in [("f32", 0), ("bf16", 0)] + q_formats:
-        for label, N, L, T, M, bn, tiles in masked_cases:
+        for label, N, L, T, M, bn, bt, tiles in masked_cases:
             dead = (1, N - 1)
             if fmt in ("f32", "bf16"):
                 dt = torch.bfloat16 if fmt == "bf16" else torch.float32
@@ -618,13 +636,13 @@ def main() -> int:
                 e, m = quant_like(N, L, M, fmt, Kc, dead)
                 q = unit_rows(gen, (T, M))
                 kernel = masked_maxsim_q_cuda
-            tm = tile_mask(N, T, bn, bn, 0.4 if tiles == "random"
+            tm = tile_mask(N, T, bn, bt, 0.4 if tiles == "random"
                            else float(tiles == "all"))
             if tiles == "random":
                 tm[0], tm[(N - 1) // bn] = True, False
-            got = kernel(e, m, q, tm, bn, bn)
+            got = kernel(e, m, q, tm, bn, bt)
             tag = f"{kernel.__name__[:-5]} {fmt} Kc={Kc} {label}"
-            err = check_masked(tag, e, m, q, tm, bn, bn, got)
+            err = check_masked(tag, e, m, q, tm, bn, bt, got)
             if tiles != "none" and not (got[1] == NEG).all():
                 fail(f"{tag}: an all-masked doc in an active tile must give "
                      "-3e38")
@@ -633,8 +651,8 @@ def main() -> int:
                      "give 0")
             if tiles == "none" and got.any():
                 fail(f"{tag}: all tiles inactive must give all zeros")
-            print(f"kernel {tag} N={N} L={L} T={T} M={M} bn=bt={bn} tiles="
-                  f"{tiles} ({int(tm.sum())} of {tm.numel()} active): "
+            print(f"kernel {tag} N={N} L={L} T={T} M={M} bn={bn} bt={bt} "
+                  f"tiles={tiles} ({int(tm.sum())} of {tm.numel()} active): "
                   f"max_abs_err={err:.3g} ok (rtol={RTOL}, atol={ATOL}); "
                   "== where(tile, maxsim twin, 0) bit for bit", flush=True)
 
@@ -993,6 +1011,7 @@ def main() -> int:
     if (launches_b["masked_maxsim"] != 4 or launches_b["masked_maxsim_q"] != 8
             or sum(launches_b.values()) != 12):
         fail(f"phase 6b: launches {launches_b}")
+    ratios = {}
     for fmt, (e, m) in bulk.items():
         quant = fmt != "f32"
         kernel = masked_maxsim_q_cuda if quant else masked_maxsim_cuda
@@ -1031,11 +1050,14 @@ def main() -> int:
                     source="src/repro_torch/kernels/csrc/maxsim.cu",
                     replaces="src/repro/kernels/masked_maxsim.py:56",
                     library_ms=None, **rec)
+            ratios.setdefault(fmt, {})[str(d)] = ms / dense_ms
             print(f"phase 6b {fmt} N={n_docs} T=32 tile mask "
                   f"{tuple(tm.shape)} density {d}: docs with an active tile "
                   f"{on:.4f}; masked {ms:.4f} ms against dense "
                   f"{dense_ms:.4f} ms (ratio {ms / dense_ms:.4f}); "
                   f"{json.dumps(rec)}", flush=True)
+    print(f"phase 6b masked / dense twin (events) by format and tile "
+          f"density: {json.dumps(ratios)}", flush=True)
     print(f"phase 6b: launches {launches_b}", flush=True)
     records["masked_maxsim"]["launches"] = (launches_a["masked_maxsim"]
                                             + launches_b["masked_maxsim"])

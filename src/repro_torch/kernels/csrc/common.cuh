@@ -21,13 +21,10 @@ __device__ __forceinline__ float nan_max(float acc, float x) {
 
 // Row loaders: how a kernel body reads element m of corpus token row r
 // (r = doc * L + l). A body is templated on its loader, so one body serves
-// every corpus kind. `row(r, cb_s)` returns a view of one row; `cb_s` is
-// the codebook staged in shared memory (unused by the dense and int8
-// loaders). `kCodebook` says whether the body must stage a codebook.
-// A body that copies rows raw (reveal.cu stages them with cp.async) reads
-// `raw(r)`, the row's M stored elements of type `Elem`, with `scale(r)`
-// and `code(r)` beside it (`kScaled`), and turns a stored element into
-// its value with `at`, the same formula the row view applies.
+// every corpus kind. Bodies copy rows raw (cp.async): `raw(r)` is the row's
+// M stored elements of type `Elem`, with `scale(r)` and `code(r)` beside it
+// (`kScaled`), and `at` turns a stored element into its value. `kCodebook`
+// says whether the body must stage the codebook in shared memory.
 //
 // DenseRows: a float32 or bf16 corpus (D, L, M).
 template <typename TE>
@@ -40,15 +37,6 @@ struct DenseRows {
   static __device__ __forceinline__ float at(TE x, float, const float*,
                                              int) {
     return to_f32(x);
-  }
-  struct View {
-    const TE* p;
-    __device__ __forceinline__ float operator()(int m) const {
-      return at(p[m], 1.f, nullptr, m);
-    }
-  };
-  __device__ __forceinline__ View row(int64_t r, const float*) const {
-    return View{E + r * M};
   }
   __host__ __device__ __forceinline__ const TE* raw(int64_t r) const {
     return E + r * M;
@@ -86,19 +74,6 @@ struct QuantRows {
       return v;
     }
   }
-  struct View {
-    const int8_t* p;
-    float s;
-    const float* c;  // cb_s + code * M (residual only)
-    __device__ __forceinline__ float operator()(int m) const {
-      return at(p[m], s, c, m);
-    }
-  };
-  __device__ __forceinline__ View row(int64_t r, const float* cb_s) const {
-    const float* c = nullptr;
-    if constexpr (kResidual) c = cb_s + (int64_t)code(r) * M;
-    return View{data + r * M, scale(r), c};
-  }
   __host__ __device__ __forceinline__ const int8_t* raw(int64_t r) const {
     return data + r * M;
   }
@@ -114,27 +89,6 @@ struct QuantRows {
     }
   }
 };
-
-// Floats of shared memory a loader's codebook takes.
-template <typename Rows>
-__host__ __device__ inline size_t codebook_floats(const Rows& rows) {
-  if constexpr (Rows::kCodebook) {
-    return (size_t)rows.Kc * rows.M;
-  } else {
-    return 0;
-  }
-}
-
-// Copy the loader's codebook into shared memory (all threads of a block;
-// the caller synchronises before the first read).
-template <typename Rows>
-__device__ __forceinline__ void stage_codebook(const Rows& rows, float* cb_s,
-                                               int tid, int n_threads) {
-  if constexpr (Rows::kCodebook) {
-    const int n = rows.Kc * rows.M;
-    for (int i = tid; i < n; i += n_threads) cb_s[i] = rows.codebook[i];
-  }
-}
 
 // Opt in to more than 48 KB of dynamic shared memory where needed.
 template <typename Kernel>

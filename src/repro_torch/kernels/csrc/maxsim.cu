@@ -1,5 +1,5 @@
 // Dense batched MaxSim for the dense rerank flavor and the exhaustive oracle,
-// and its tile-masked form (sm_90a). Four entry points, two bodies:
+// and its tile-masked form (sm_90a). Four entry points, one body:
 //   colbandit_maxsim           replaces src/repro/kernels/maxsim.py maxsim /
 //                              _maxsim_kernel
 //   colbandit_maxsim_q         replaces src/repro/kernels/maxsim.py maxsim /
@@ -23,11 +23,12 @@
 // ~20 flop/byte ridge of the f32 CUDA cores, so bytes and the f32 issue
 // rate bound the f32 corpus about equally; an int8 corpus (~63 flop per
 // byte) is bound by operations. Tensor cores would break the per-cell fmaf
-// chain below, and buy nothing for f32 at this ridge.
+// chain below, and buy nothing for f32 at this ridge. The masked form is
+// bound the same way over the docs it reads.
 //
-// Dense body (colbandit_maxsim, colbandit_maxsim_q). A block of 128 threads
-// takes kDocs consecutive docs of one query b, grid (ceil(N / kDocs), B), so
-// the (B, N, L, T) similarity tensor never exists.
+// The body (dense::maxsim_body). A block of 128 threads takes kDocs
+// consecutive docs of one query b, grid (ceil(N / kDocs), B), so the
+// (B, N, L, T) similarity tensor never exists.
 //  1. Each warp compacts the valid tokens of one of the block's docs into a
 //     list in shared memory (a ballot per 32 mask bytes), so masked tokens
 //     are neither read nor computed; an all-masked doc writes -3e38 at once.
@@ -51,34 +52,36 @@
 //     holds rows tg + 8 (2 r + tb), r < 4, against query rows
 //     16 qh + qg + 4 c, c < 4: 16 accumulators. A step of 4 m reads 4 row
 //     float4s (the 8 lanes of a query group on 8 consecutive rows) and 4
-//     query float4s (broadcasts) for 64 FMAs, against 5 shared loads per 4
-//     FMAs in the masked body. A warp computes only the 8-row groups that
-//     hold valid tokens.
+//     query float4s (broadcasts) for 64 FMAs. A warp computes only the
+//     8-row groups that hold valid tokens.
 //  5. Running maxima per query row stay in registers across a doc's chunks;
 //     at the doc's end one shuffle tree over the 8 lanes of a query group
 //     and one pass over the two row halves in shared memory give H.
+// Two kernel names run it: maxsim_kernel (no tile mask) and masked_maxsim
+// (kTiles), which skips work at three grains, each decision uniform where
+// a barrier follows it (a divergent exit would deadlock the next barrier):
+//  - a block none of whose docs has an active tile writes zeros and
+//    returns before it reads a doc byte or stages the codebook;
+//  - in a 32-token pass, a doc with no active tile over the pass's query
+//    rows is left out of the block's chunk sequence (its rows are neither
+//    staged nor computed) and writes zeros; a pass without such a doc is
+//    skipped;
+//  - a warp whose 16 query rows have no active tile of the doc skips its
+//    product for that doc (warp-uniform).
+// Every cell is written as its value where its tile is active and 0.f
+// elsewhere; an all-masked doc gives -3e38 in its active tiles. At T = 32
+// a doc's tiles form one row, so a doc is read when any of its tiles is
+// active, and masked time follows the share of such docs.
 // A cell's dot is one sequential fmaf chain over m = 0..M-1 from 0.f of the
 // loader's element (`at`) and the f32 query element, in ascending m (a
 // float4 step does its 4 fmaf in order): the reveal body's arithmetic
 // (reveal.cu), so a revealed cell equals a dense cell bit for bit, a _q
-// launch equals the f32 launch on the dequantized corpus, and no cell
-// depends on kDocs, the chunking or the launch shape. Every barrier is
-// reached by every thread: the chunk sequence is the same in the whole
-// block. The body's shared memory has one definition, dense::layout(),
-// read by the launch and exported as colbandit_maxsim_smem_bytes.
-//
-// Masked body (colbandit_masked_maxsim, _q): the first dense body of this
-// file, kept for the masked kernels, with three decisions, each uniform
-// across the block (a thread-divergent exit would deadlock the next
-// barrier). One block per doc keeps a 32-token slice of
-// its query transposed in shared memory, streams the doc through a
-// 32-token tile (tiles with no valid token are skipped; a compressed corpus
-// is dequantized as the tile fills), and each thread keeps 4 doc rows x 1
-// query token in registers. A doc whose row of tiles is all inactive writes
-// zeros and returns before it reads the doc or stages the codebook; a
-// 32-token pass with no active tile writes zeros and is skipped; any other
-// pass is computed and each cell is written as v or 0. Its dot is the same
-// fmaf chain, so an active cell equals the dense kernel's bit for bit.
+// launch equals the f32 launch on the dequantized corpus, an active masked
+// cell equals the dense one, and no cell depends on kDocs, the chunking,
+// the tile mask or the launch shape. Every barrier is reached by every
+// thread: the chunk sequence is the same in the whole block. The body's
+// shared memory has one definition, dense::layout(), read by the launch
+// and exported as colbandit_maxsim_smem_bytes.
 #include <type_traits>
 
 #include "async_copy.cuh"
@@ -108,8 +111,22 @@ int copy_granularity(const void* base, int row_bytes) {
   return g;
 }
 
+// A (ceil(N/bn), gj = ceil(T/bt)) bool tile mask, row-major: cell (i, t)
+// is active when tile (i / bn, t / bt) is. m is nullptr for the dense
+// kernel, which reads none of it.
+struct TileMask {
+  const uint8_t* m;
+  int bn, bt, gj;
+  __device__ __forceinline__ const uint8_t* row(int i) const {
+    return m + (int64_t)(i / bn) * gj;
+  }
+  __device__ __forceinline__ bool on(int i, int t) const {
+    return row(i)[t / bt] != 0;
+  }
+};
+
 // ---------------------------------------------------------------------------
-// Dense body
+// The body
 // ---------------------------------------------------------------------------
 namespace dense {
 
@@ -355,34 +372,35 @@ __device__ __forceinline__ void dot_rows(int nr, const float* e_s,
   }
 }
 
-// A place in the block's sequence of chunks: chunk c of the valid tokens of
-// doc d (of the block); d == nd past the end. All-masked docs have none.
+// A place in a pass's sequence of chunks: chunk c of the valid tokens of
+// doc d (of the block); d == nd past the end. The sequence's docs are the
+// set bits of live: docs with a valid token (and, masked, an active tile
+// in the pass).
 struct Cursor {
   int d, c;
-  __device__ __forceinline__ void skip_empty(const int* cnt_s, int nd) {
-    while (d < nd && cnt_s[d] == 0) ++d;
+  __device__ __forceinline__ void skip_dead(unsigned live, int nd) {
+    while (d < nd && !((live >> d) & 1u)) ++d;
   }
   __device__ __forceinline__ bool last_of_doc(const int* cnt_s) const {
     return (c + 1) * kChunk >= cnt_s[d];
   }
-  __device__ __forceinline__ void next(const int* cnt_s, int nd) {
+  __device__ __forceinline__ void next(const int* cnt_s, unsigned live,
+                                       int nd) {
     if (last_of_doc(cnt_s)) {
       ++d;
       c = 0;
-      skip_empty(cnt_s, nd);
+      skip_dead(live, nd);
     } else {
       ++c;
     }
   }
 };
 
-// The kernel's name starts with maxsim_kernel<DenseRows or <QuantRows, which
-// is what chip_smoke.py's profiles look for.
-template <typename Rows, typename TQ>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
-              const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
-              int M, int T, int Kc, int gran) {
+template <typename Rows, typename TQ, bool kTiles>
+__device__ __forceinline__ void maxsim_body(
+    Rows rows, const uint8_t* __restrict__ mask, const TQ* __restrict__ Qb,
+    float* __restrict__ H, int N, int L, int M, int T, int Kc, int gran,
+    TileMask tiles) {
   using Elem = typename Rows::Elem;
   constexpr bool kDirect = std::is_same<Elem, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -404,6 +422,16 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
   const int64_t doc0 = (int64_t)blockIdx.y * N + i0;
   const TQ* q_b = Qb + (int64_t)blockIdx.y * T * M;
 
+  if constexpr (kTiles) {  // 0. a block with no active tile
+    int any = 0;
+    for (int k = tid; k < nd * tiles.gj; k += kThreads)
+      any |= tiles.row(i0 + k / tiles.gj)[k % tiles.gj];
+    if (!__syncthreads_or(any)) {  // uniform: the whole block returns
+      for (int k = tid; k < nd * T; k += kThreads) H[doc0 * T + k] = 0.f;
+      return;
+    }
+  }
+
   // 1. valid tokens; scales, codes and codebook beside them.
   compact_docs(mask + doc0 * L, nd, L, tok_s, cnt_s, lane, warp);
   if constexpr (Rows::kScaled) {
@@ -416,10 +444,17 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
   if constexpr (Rows::kCodebook)
     stage_f32(cb_s, o.cbs, rows.codebook, M, Kc, Kc, tid);
   __syncthreads();
-  for (int d = 0; d < nd; ++d)
-    if (cnt_s[d] == 0)
+  unsigned has = 0;  // bit d: doc d has a valid token
+  for (int d = 0; d < nd; ++d) {
+    if (cnt_s[d] > 0) {
+      has |= 1u << d;
+    } else {
       for (int t = tid; t < T; t += kThreads)
-        H[(doc0 + d) * T + t] = COLBANDIT_NEG;
+        H[(doc0 + d) * T + t] =
+            kTiles && !tiles.on(i0 + d, t) ? 0.f : COLBANDIT_NEG;
+    }
+  }
+  if (has == 0) return;  // uniform: every doc is all-masked
 
   const int row_bytes = M * static_cast<int>(sizeof(Elem));
   const size_t buf_bytes = (size_t)kChunk * o.rs;
@@ -430,17 +465,36 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
                (doc0 + s.d) * L, row_bytes, o.rs, gran, tid);
     copy_async_commit();
   };
-  Cursor first{0, 0};
-  first.skip_empty(cnt_s, nd);
-  if (first.d == nd) return;  // uniform: every doc is all-masked
-
   for (int t0 = 0; t0 < T; t0 += kPassT) {
     const int tc = min(kPassT, T - t0);
+    // The pass's docs (live). Masked: bit d of on is whether cell (doc d,
+    // query row t0 + lane) is active; bit 2 d + h of halves whether doc d
+    // has an active cell in query half h of the pass, from a ballot that
+    // every warp takes alike. A doc with none is left out and writes zeros.
+    unsigned live = has, halves = 0, on = 0;
+    if constexpr (kTiles) {
+      for (int d = 0; d < nd; ++d)
+        if (((has >> d) & 1u) && lane < tc && tiles.on(i0 + d, t0 + lane))
+          on |= 1u << d;
+      for (int d = 0; d < nd; ++d) {
+        const unsigned b = __ballot_sync(0xffffffffu, (on >> d) & 1u);
+        if (b & 0xffffu) halves |= 1u << (2 * d);
+        if (b >> 16) halves |= 2u << (2 * d);
+        if (b == 0 && ((has >> d) & 1u)) {
+          live &= ~(1u << d);
+          for (int t = tid; t < tc; t += kThreads)
+            H[(doc0 + d) * T + t0 + t] = 0.f;
+        }
+      }
+      if (live == 0) continue;  // uniform: no doc of the block in the pass
+    }
     // 2. the first two chunks in flight, then the query rows of the pass.
-    Cursor cur = first, ahead = first;
+    Cursor cur{0, 0};
+    cur.skip_dead(live, nd);
+    Cursor ahead = cur;
     for (int k = 0; k < 2; ++k) {
       stage(ahead, buf + k * buf_bytes);
-      if (ahead.d < nd) ahead.next(cnt_s, nd);
+      if (ahead.d < nd) ahead.next(cnt_s, live, nd);
     }
     stage_f32(q_s, o.ts, q_b + (int64_t)t0 * M, M, tc, kPassT, tid);
     const float* q_r = q_s + (size_t)(16 * qh + qg) * o.ts;
@@ -451,9 +505,10 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
     // The doc whose maxima wait in red for the next barrier, or -1.
     int pending = -1;
     auto flush = [&]() {
-      for (int t = tid; t < tc; t += kThreads) {
+      for (int t = tid; t < tc; t += kThreads) {  // t == lane: tc <= 32
         float v = red[t];
         for (int h = 1; h < kHalves; ++h) v = nan_max(v, red[h * kPassT + t]);
+        if constexpr (kTiles) v = (on >> pending) & 1u ? v : 0.f;
         H[(doc0 + pending) * T + t0 + t] = v;
       }
       pending = -1;
@@ -472,10 +527,13 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
                             o.rs, o.ts, o.cbs, tid);
         __syncthreads();  // the tile is written and raw is free
         stage(ahead, raw);
-        if (ahead.d < nd) ahead.next(cnt_s, nd);
+        if (ahead.d < nd) ahead.next(cnt_s, live, nd);
         e_s = tile;
       }
-      if (16 * qh < tc) {  // warp-uniform: the query half has rows
+      // Warp-uniform: the query half has rows (masked: an active tile).
+      bool half_on = 16 * qh < tc;
+      if constexpr (kTiles) half_on = (halves >> (2 * cur.d + qh)) & 1u;
+      if (half_on) {
         const int groups = (n_k + 7) / 8;
         dot_rows((groups - tb + kHalves - 1) / kHalves, e_s, q_r, o.ts, M, tg,
                  tb, n_k, run);
@@ -483,11 +541,11 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
       if constexpr (kDirect) {
         __syncthreads();  // chunk k's buffer is free
         stage(ahead, raw);
-        if (ahead.d < nd) ahead.next(cnt_s, nd);
+        if (ahead.d < nd) ahead.next(cnt_s, live, nd);
       }
       const int d = cur.d;
       const bool last = cur.last_of_doc(cnt_s);
-      cur.next(cnt_s, nd);
+      cur.next(cnt_s, live, nd);
       if (last) {  // 4. the doc's maxima meet
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -506,169 +564,60 @@ maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
   }
 }
 
-}  // namespace dense
-
-// ---------------------------------------------------------------------------
-// Masked body
-// ---------------------------------------------------------------------------
-namespace masked {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;                 // doc rows per thread
-constexpr int kTileL = kWarps * kRows;   // doc tokens per shared tile
-constexpr int kColT = 32;                // query tokens per pass, one per lane
-
-// A (ceil(N/bn), gj = ceil(T/bt)) bool tile mask, row-major.
-struct TileMask {
-  const uint8_t* m;
-  int bn, bt, gj;
-};
-
-// Floats of shared memory one block takes: the transposed query slice, the
-// doc tile, the per-warp maxima and the codebook.
-template <typename Rows>
-size_t smem_floats(const Rows& rows, int M) {
-  return (size_t)M * kColT + (size_t)kTileL * M + kWarps * kColT +
-         codebook_floats(rows);
+// The kernels' names start with maxsim_kernel<DenseRows or <QuantRows and
+// masked_maxsim<DenseRows or <QuantRows, which is what chip_smoke.py's
+// profiles look for. Both take the same arguments; maxsim_kernel ignores
+// the tile mask.
+template <typename Rows, typename TQ>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
+              const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
+              int M, int T, int Kc, int gran, TileMask) {
+  maxsim_body<Rows, TQ, false>(rows, mask, Qb, H, N, L, M, T, Kc, gran,
+                               TileMask{});
 }
 
 template <typename Rows, typename TQ>
-__device__ __forceinline__ void masked_body(Rows rows,
-                                            const uint8_t* __restrict__ mask,
-                                            const TQ* __restrict__ Qb,
-                                            float* __restrict__ H, int N,
-                                            int L, int M, int T,
-                                            TileMask tiles) {
-  extern __shared__ float smem_f[];
-  float* q_s = smem_f;                    // (M, kColT) query slice, transposed
-  float* e_s = q_s + (size_t)M * kColT;     // (kTileL, M) doc token tile
-  float* red = e_s + (size_t)kTileL * M;    // (kWarps, kColT) per-warp maxima
-  float* cb_s = red + kWarps * kColT;       // (Kc, M) codebook, residual only
-
-  const int64_t doc = (int64_t)blockIdx.y * N + blockIdx.x;
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const uint8_t* m_doc = mask + doc * L;
-  const TQ* q_b = Qb + (int64_t)blockIdx.y * T * M;
-  float* h_doc = H + doc * T;
-  const uint8_t* tile_row =
-      tiles.m + (int64_t)(blockIdx.x / tiles.bn) * tiles.gj;
-  {
-    int any = 0;
-    for (int j = tid; j < tiles.gj; j += kThreads) any |= tile_row[j];
-    if (!__syncthreads_or(any)) {  // uniform: the whole block returns
-      for (int t = tid; t < T; t += kThreads) h_doc[t] = 0.f;
-      return;
-    }
-  }
-  stage_codebook(rows, cb_s, tid, kThreads);  // read after the first barrier
-
-  for (int t0 = 0; t0 < T; t0 += kColT) {
-    const int tc = min(kColT, T - t0);
-    // This thread's output cell t0 + tid, if tid < tc.
-    const bool active = tid < tc && tile_row[(t0 + tid) / tiles.bt];
-    // Also the barrier after which the previous pass is done with q_s and
-    // red; uniform, so the skip is too.
-    if (!__syncthreads_or(active)) {
-      if (tid < tc) h_doc[t0 + tid] = 0.f;
-      continue;
-    }
-    for (int i = tid; i < kColT * M; i += kThreads) {
-      const int t = i / M, m = i - t * M;
-      q_s[m * kColT + t] =
-          t < tc ? to_f32(q_b[(int64_t)(t0 + t) * M + m]) : 0.f;
-    }
-    float run = COLBANDIT_NEG;
-    for (int l0 = 0; l0 < L; l0 += kTileL) {
-      const int lc = min(kTileL, L - l0);
-      // Also the barrier after which q_s is written and e_s is free.
-      if (!__syncthreads_or(tid < lc && m_doc[l0 + tid])) continue;
-      for (int i = tid; i < kTileL * M; i += kThreads) {
-        const int r = i / M;
-        e_s[i] = r < lc ? rows.row(doc * L + l0 + r, cb_s)(i - r * M) : 0.f;
-      }
-      __syncthreads();
-      float acc[kRows];
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
-      const float* e_r = e_s + (size_t)ty * kRows * M;
-      for (int m = 0; m < M; ++m) {
-        const float q = q_s[m * kColT + tx];
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) acc[j] = fmaf(e_r[j * M + m], q, acc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const int r = ty * kRows + j;
-        if (r < lc && m_doc[l0 + r]) run = nan_max(run, acc[j]);
-      }
-    }
-    red[ty * kColT + tx] = run;
-    __syncthreads();
-    if (tid < tc) {
-      float v = COLBANDIT_NEG;
-      for (int w = 0; w < kWarps; ++w) v = nan_max(v, red[w * kColT + tid]);
-      h_doc[t0 + tid] = active ? v : 0.f;
-    }
-  }
-}
-
-template <typename Rows, typename TQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 masked_maxsim(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
-              int M, int T, TileMask tiles) {
-  masked_body(rows, mask, Qb, H, N, L, M, T, tiles);
+              int M, int T, int Kc, int gran, TileMask tiles) {
+  maxsim_body<Rows, TQ, true>(rows, mask, Qb, H, N, L, M, T, Kc, gran,
+                              tiles);
 }
 
-}  // namespace masked
+}  // namespace dense
 
 struct Args {
   const uint8_t* mask;
   const void* Q;
   float* H;
   int B, N, L, M, T;
-  masked::TileMask tiles;  // tiles.m == nullptr: the dense kernel
+  TileMask tiles;  // tiles.m == nullptr: the dense kernel
   cudaStream_t stream;
 };
 
 template <typename Rows, typename TQ>
-int launch_dense(const Rows& rows, const Args& a) {
+int launch(const Rows& rows, const Args& a) {
   using Elem = typename Rows::Elem;
   const int kc = codebook_rows(rows);
   const size_t smem =
       dense::layout(a.L, a.M, sizeof(Elem), Rows::kScaled, kc).total;
-  auto kernel = &dense::maxsim_kernel<Rows, TQ>;
+  auto kernel = a.tiles.m ? &dense::masked_maxsim<Rows, TQ>
+                          : &dense::maxsim_kernel<Rows, TQ>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + dense::kDocs - 1) / dense::kDocs, a.B);
   kernel<<<grid, dense::kThreads, smem, a.stream>>>(
       rows, a.mask, static_cast<const TQ*>(a.Q), a.H, a.N, a.L, a.M, a.T, kc,
-      copy_granularity(rows.raw(0), a.M * (int)sizeof(Elem)));
-  return (int)cudaGetLastError();
-}
-
-template <typename Rows, typename TQ>
-int launch_masked(const Rows& rows, const Args& a) {
-  const size_t smem = masked::smem_floats(rows, a.M) * sizeof(float);
-  auto kernel = &masked::masked_maxsim<Rows, TQ>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.N, a.B);
-  kernel<<<grid, masked::kThreads, smem, a.stream>>>(
-      rows, a.mask, static_cast<const TQ*>(a.Q), a.H, a.N, a.L, a.M, a.T,
-      a.tiles);
+      copy_granularity(rows.raw(0), a.M * (int)sizeof(Elem)), a.tiles);
   return (int)cudaGetLastError();
 }
 
 template <typename Rows>
 int by_query(const Rows& rows, const Args& a, int q_bf16) {
-  if (a.tiles.m) {
-    if (q_bf16) return launch_masked<Rows, __nv_bfloat16>(rows, a);
-    return launch_masked<Rows, float>(rows, a);
-  }
-  if (q_bf16) return launch_dense<Rows, __nv_bfloat16>(rows, a);
-  return launch_dense<Rows, float>(rows, a);
+  if (q_bf16) return launch<Rows, __nv_bfloat16>(rows, a);
+  return launch<Rows, float>(rows, a);
 }
 
 template <typename TS>
@@ -684,7 +633,7 @@ int quant_scales(const int8_t* data, const void* scales, const int32_t* codes,
 
 Args dense_args(const uint8_t* mask, const void* Q, float* H, int B, int N,
                 int L, int M, int T, void* stream) {
-  return Args{mask, Q, H, B, N, L, M, T, masked::TileMask{nullptr, 1, 1, 0},
+  return Args{mask, Q, H, B, N, L, M, T, TileMask{nullptr, 1, 1, 0},
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -693,7 +642,7 @@ Args masked_args(const uint8_t* mask, const void* Q, const uint8_t* tile_mask,
                  float* H, int N, int L, int M, int T, int bn, int bt,
                  void* stream) {
   return Args{mask, Q, H, 1, N, L, M, T,
-              masked::TileMask{tile_mask, bn, bt, (T + bt - 1) / bt},
+              TileMask{tile_mask, bn, bt, (T + bt - 1) / bt},
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -716,7 +665,7 @@ int quant_corpus(const int8_t* data, const void* scales, const int32_t* codes,
 
 }  // namespace
 
-// Bytes of shared memory one block of colbandit_maxsim / _q takes for docs
+// Bytes of shared memory one block of any entry point takes for docs
 // of L tokens of M elements of elem_bytes bytes (4 f32, 2 bf16, 1 int8),
 // scaled rows (the _q entry point) and Kc codebook rows (0 without one).
 extern "C" long long colbandit_maxsim_smem_bytes(int L, int M, int elem_bytes,

@@ -6,18 +6,20 @@ TPU kernel ``src/repro/kernels/masked_maxsim.py:97`` ``masked_maxsim``
 (``_masked_maxsim_kernel``, ``:27``); ``colbandit_masked_maxsim_q``
 replaces ``_masked_maxsim_q_kernel`` (``:56``), which reads a
 ``QuantTokens`` corpus and skips the dequant of inactive tiles too. Both run
-the first MaxSim body of ``csrc/maxsim.cu`` (one block per doc,
-32-token tiles; the dense kernels now have their own) with the tile mask
-as an operand: a doc whose tiles are all inactive writes zeros without
-reading its tokens, a 32-token pass with no active tile is skipped, and
-every active cell equals the dense kernel's bit for bit (the same fmaf
-chain per cell). Bound on the H100: as the dense kernel for
-the docs it reads (bytes and the f32 issue rate for f32, operations for
-int8); the design notes are in the source.
+the dense MaxSim body of ``csrc/maxsim.cu`` (``maxsim.py``'s kernels) with
+the tile mask as an operand: a block of docs with no active tile writes
+zeros without reading its tokens, a doc with no active tile in a 32-token
+query pass is neither staged nor computed in it, a warp skips a 16-row
+query half with no active tile, and every active cell equals the dense
+kernel's bit for bit (the same fmaf chain per cell). Bound on the H100: as
+the dense kernel over the docs it reads (bytes and the f32 issue rate for
+f32, operations for int8); the design notes are in the source. The shared
+memory a launch needs is the dense body's (``colbandit_maxsim_smem_bytes``),
+so an oversized codebook raises ValueError before any launch.
 
 ``tile_mask`` is (ceil(N / block_n), ceil(T / block_t)) bool: ``block_n``
 and ``block_t`` define the grid it is written in and do not tune anything.
-The CUDA kernels fix their own L tile, so there is no ``block_l``.
+The CUDA kernels fix their own L chunk, so there is no ``block_l``.
 
 ``masked_maxsim_plain`` is the plain PyTorch version of both
 (``kernels/ref.py``'s ``masked_maxsim_ref``); tests and ``chip_smoke.py``
@@ -28,14 +30,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.maxsim import _check_maxsim, maxsim_plain
+from repro_torch.kernels.maxsim import _check_maxsim, _dense_smem, \
+    maxsim_plain
 from repro_torch.kernels.quant import QuantTokens, corpus_reshape
-
-
-def _masked_smem(kc: int = 0):
-    """``smem_bytes`` of the masked body: the transposed 32-token query
-    slice, the (32, M) doc tile, per-warp maxima and the codebook."""
-    return lambda L, M: (M * 64 + 256 + kc * M) * 4
 
 
 def check_tiles(name: str, tile_mask: torch.Tensor, N: int, T: int,
@@ -104,11 +101,12 @@ def masked_maxsim_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
     N = doc_embs.shape[0]
     check_tiles(name, tile_mask, N, queries.shape[0], block_n, block_t)
     _build.require_cuda(name, doc_embs, doc_tok_mask, queries, tile_mask)
-    out = _check_maxsim(name, doc_embs[None], doc_tok_mask[None],
-                        queries[None], _masked_smem())[0]
     _build.require(doc_embs.dtype in _build.FLOAT_TYPES
                    and doc_embs.is_contiguous(), name,
                    "doc_embs must be contiguous float32/bfloat16")
+    out = _check_maxsim(name, doc_embs[None], doc_tok_mask[None],
+                        queries[None],
+                        _dense_smem(doc_embs.element_size()))[0]
     if out.numel() == 0:
         return out
     lib = _build.library("maxsim.cu")
@@ -138,7 +136,7 @@ def masked_maxsim_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
     qargs, s_bf16 = _build.quant_args(name, doc_embs)
     out = _check_maxsim(name, corpus_reshape(doc_embs, 1, N),
                         doc_tok_mask[None], queries[None],
-                        _masked_smem(qargs[-1]))[0]
+                        _dense_smem(1, qargs[-1], scaled=True))[0]
     if out.numel() == 0:
         return out
     lib = _build.library("maxsim.cu")

@@ -258,14 +258,31 @@ MASKED_FMTS = [("f32", 0), ("bf16", 0), ("int8", 0), ("residual", 8),
                ("residual", 1)]
 
 
-@pytest.mark.parametrize("tiles", ["random", "none", "all"])
+def _half_tiles(grid, bt, device):
+    """Even tile rows active only over the tiles that start in query rows
+    16..31 (one 16-row query half of the first pass), odd rows inactive."""
+    j = torch.arange(grid[1], device=device) * bt
+    cols = (j >= 16) & (j < 32)
+    rows = torch.arange(grid[0], device=device) % 2 == 0
+    return (rows[:, None] & cols[None, :]).contiguous()
+
+
+@pytest.mark.parametrize("tiles", ["random", "none", "all", "half"])
 @pytest.mark.parametrize("fmt,Kc", MASKED_FMTS)
-@pytest.mark.parametrize("N,L,T,M,bn", [(256, 128, 32, 128, 8),
-                                        (5, 77, 19, 100, 4)])
+@pytest.mark.parametrize("N,L,T,M,bn,bt", [
+    (256, 128, 32, 128, 8, 8), (5, 77, 19, 100, 4, 4),
+    (7, 77, 32, 100, 3, 8), (6, 128, 32, 128, 1, 8),
+    (9, 130, 45, 64, 3, 5), (8, 100, 64, 128, 2, 40),
+    (7, 77, 45, 100, 3, 40)])
 def test_masked_maxsim_matches_plain_and_the_maxsim_twin(card, fmt, Kc, N,
-                                                         L, T, M, bn, tiles):
+                                                         L, T, M, bn, bt,
+                                                         tiles):
     """Docs 0 and N - 1 are all-masked; under the random mask (density
-    0.4) doc 0's tiles are all active and doc N - 1's all inactive."""
+    0.4) doc 0's tiles are all active and doc N - 1's all inactive. bn = 3
+    and 1 put the two docs of a block in different tile rows, bt = 5 does
+    not divide the 32-row pass, and bt = 40 spans both passes of T = 45 and
+    64, so a pass of a doc can have no active tile; the half mask leaves
+    one 16-row query half of a doc active."""
     gen = torch.Generator(device=card).manual_seed(7)
     dt = torch.bfloat16 if fmt == "bf16" else torch.float32
     if fmt in ("f32", "bf16"):
@@ -275,24 +292,26 @@ def test_masked_maxsim_matches_plain_and_the_maxsim_twin(card, fmt, Kc, N,
         e, m = _quant_docs(gen, N, L, M, fmt, Kc)
     m[N - 1] = False
     q = _unit(torch.randn((T, M), generator=gen, device=card)).to(dt)
-    grid = (-(-N // bn), -(-T // bn))
+    grid = (-(-N // bn), -(-T // bt))
     if tiles == "random":
         tm = torch.rand(grid, generator=gen, device=card) < 0.4
         tm[0], tm[(N - 1) // bn] = True, False
+    elif tiles == "half":
+        tm = _half_tiles(grid, bt, card)
     else:
         tm = torch.full(grid, tiles == "all", dtype=torch.bool, device=card)
     _build.reset_launches()
-    got = ops.masked_maxsim_op(e, m, q, tm, block_n=bn, block_t=bn)
+    got = ops.masked_maxsim_op(e, m, q, tm, block_n=bn, block_t=bt)
     kernel = "masked_maxsim" if fmt in ("f32", "bf16") else "masked_maxsim_q"
     assert _build.LAUNCHES[kernel] == 1 and sum(_build.LAUNCHES.values()) == 1
-    torch.testing.assert_close(got, masked_maxsim_plain(e, m, q, tm, bn, bn),
+    torch.testing.assert_close(got, masked_maxsim_plain(e, m, q, tm, bn, bt),
                                rtol=RTOL, atol=ATOL)
-    full = tm.repeat_interleave(bn, 0).repeat_interleave(bn, 1)[:N, :T]
+    full = tm.repeat_interleave(bn, 0).repeat_interleave(bt, 1)[:N, :T]
     assert torch.equal(got, torch.where(full, ops.maxsim_op(e, m, q), 0.0))
     neg = float(np.float32(-3e38))
-    if tiles != "none":
+    if tiles in ("random", "all"):
         assert (got[0] == neg).all()
-    if tiles != "all":
+    if tiles in ("random", "none"):
         assert (got[N - 1] == 0.0).all()
     if tiles == "none":
         assert not got.any()
@@ -488,15 +507,29 @@ def test_maxsim_cells_are_independent_of_the_launch(card, fmt, Kc, T, M,
 
 
 def test_maxsim_raises_beyond_shared_memory(card):
-    """A residual codebook too large for one block's shared memory raises
-    before any launch; nothing falls back."""
+    """A residual codebook or a doc length too large for one block's shared
+    memory raises before any launch, in the dense and the masked wrappers
+    (one body, one layout); nothing falls back."""
     gen = torch.Generator(device=card).manual_seed(13)
     qt, m = _quant_docs(gen, 8, 16, 32, "residual")
     q = torch.randn((1, 4, 32), generator=gen, device=card)
+    tm = torch.ones((1, 1), dtype=torch.bool, device=card)   # bn=8, bt=4
     big = qt._replace(codebook=torch.zeros((2048, 32), device=card))
+    long_e, long_m = _docs(gen, 2, 30000, 32, torch.float32)
     _build.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
         maxsim_batch_q_cuda(corpus_reshape(big, 1, 8), m[None], q)
+    with pytest.raises(ValueError, match="shared memory"):
+        masked_maxsim_q_cuda(big, m, q[0], tm, 8, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        maxsim_batch_cuda(long_e[None], long_m[None], q)
+    with pytest.raises(ValueError, match="shared memory"):
+        masked_maxsim_cuda(long_e, long_m, q[0], tm, 8, 4)
     assert not any(_build.LAUNCHES.values())
     maxsim_batch_q_cuda(corpus_reshape(qt, 1, 8), m[None], q)
+    masked_maxsim_q_cuda(qt, m, q[0], tm, 8, 4)
+    masked_maxsim_cuda(long_e[:, :16].contiguous(),
+                       long_m[:, :16].contiguous(), q[0], tm, 8, 4)
     assert _build.LAUNCHES["maxsim_q"] == 1
+    assert _build.LAUNCHES["masked_maxsim_q"] == 1
+    assert _build.LAUNCHES["masked_maxsim"] == 1

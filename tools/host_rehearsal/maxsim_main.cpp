@@ -2,12 +2,18 @@
 // small shapes, every cell held bit for bit to a direct reference (one
 // sequential fma chain over m from 0, nan-propagating max over the valid
 // tokens, -3e38 for an all-masked doc), and the masked entry points held to
-// where(tile, reference, 0). Covers f32 and bf16 rows and queries, int8
-// rows with f32 and bf16 scales, residual rows with Kc = 8 and 1 and
-// clamped codes, rows that are not 16-byte aligned (M = 100 int8 rows in
-// 4-byte pieces, M = 33 in single bytes), M not a multiple of 4, docs
-// across chunk edges, masks with holes, an all-masked doc in every case, N
-// not a multiple of the docs per block, and T = 40 and 64 (two passes).
+// where(tile, reference, 0) in every case, under a random tile mask and a
+// patterned one. Covers f32 and bf16 rows and queries, int8 rows with f32
+// and bf16 scales, residual rows with Kc = 8 and 1 and clamped codes, rows
+// that are not 16-byte aligned (M = 100 int8 rows in 4-byte pieces, M = 33
+// in single bytes), M not a multiple of 4, docs across chunk edges, masks
+// with holes, an all-masked doc in every case, N not a multiple of the docs
+// per block, and T = 40 and 64 (two passes). The tile grids: bn = 1, 2, 3,
+// 4 and 5 (with bn odd the two docs of a block straddle tile rows), bt = 3,
+// 8, 16, 20, 32 and 40 (tiles that span both passes); the patterned mask
+// cycles its tile rows through all inactive (a block with no active tile),
+// first column only, last column only (a pass with no active tile at T =
+// 40 and 64, one 16-row query half at T = 32) and all active.
 #include <algorithm>
 #include <cstdio>
 #include <random>
@@ -33,7 +39,7 @@ struct Case {
   Kind kind;
   int Kc;
   bool holes;       // valid tokens a random subset, not a prefix
-  bool masked = false;  // also run the masked entry point (B = 1)
+  int bn, bt;       // the masked launches' tile grid (query 0's docs)
 };
 
 int run(const Case& c) {
@@ -131,12 +137,23 @@ int run(const Case& c) {
   bad += smem != (long long)launched;
   const long long barriers = g_barriers;
 
+  // The masked entry point on query 0's N docs, under a random tile mask
+  // (density 0.4, tile row 0 all active: doc 1, all-masked, gives -3e38)
+  // and the patterned one; every cell == where(tile, reference, 0).
+  const int bn = c.bn, bt = c.bt, gi = (N + bn - 1) / bn;
+  const int gj = (T + bt - 1) / bt;
   int masked_bad = 0;
-  if (c.masked) {  // bn = 4, bt = 8: random tiles, doc 1's all active
-    const int bn = 4, bt = 8, gi = (N + bn - 1) / bn, gj = (T + bt - 1) / bt;
+  for (int pattern = 0; pattern < 2; ++pattern) {
     std::vector<uint8_t> tiles(gi * gj);
-    for (auto& x : tiles) x = rng() % 5 < 2;
-    for (int j = 0; j < gj; ++j) tiles[j] = 1;
+    for (int r = 0; r < gi; ++r)
+      for (int j = 0; j < gj; ++j) {
+        const int kind = r % 4;
+        tiles[r * gj + j] = pattern == 0 ? (r == 0 || rng() % 5 < 2)
+                            : kind == 0  ? 0
+                            : kind == 1  ? j == 0
+                            : kind == 2  ? j == gj - 1
+                                         : 1;
+      }
     std::vector<float> mg(N * T, 7.f);
     rc = quant ? colbandit_masked_maxsim_q(dp, scales, cd, cbp, c.Kc,
                                            mask.data(), Qp, tiles.data(),
@@ -145,19 +162,19 @@ int run(const Case& c) {
                : colbandit_masked_maxsim(E, mask.data(), Qp, tiles.data(),
                                          mg.data(), N, L, M, T, bn, bt,
                                          q_bf16, q_bf16, nullptr);
-    masked_bad = rc != 0;
+    masked_bad += rc != 0 || g_smem_max != launched;
     for (int i = 0; i < N; ++i)
       for (int t = 0; t < T; ++t) {
         const float w = tiles[(i / bn) * gj + t / bt] ? want[i * T + t] : 0.f;
         if (std::memcmp(&mg[i * T + t], &w, 4)) ++masked_bad;
       }
   }
-  printf("%-28s B=%d N=%d L=%d T=%d M=%d: %s%s (smem %lld, launched %zu, "
-         "barriers %lld, cp.async copies of 16/8/4 bytes: %lld/%lld/%lld)\n",
-         c.name, B, N, L, T, M, bad ? "FAIL" : "bit-equal",
-         !c.masked ? "" : masked_bad ? "; masked FAIL"
-                                     : "; masked == where(tile, ref, 0)",
-         smem, launched, barriers, g_async_copies[16], g_async_copies[8],
+  printf("%-28s B=%d N=%d L=%d T=%d M=%d: %s; bn=%d bt=%d %s (smem %lld, "
+         "launched %zu, barriers %lld, cp.async copies of 16/8/4 bytes: "
+         "%lld/%lld/%lld)\n",
+         c.name, B, N, L, T, M, bad ? "FAIL" : "bit-equal", bn, bt,
+         masked_bad ? "masked FAIL" : "masked == where(tile, ref, 0)", smem,
+         launched, barriers, g_async_copies[16], g_async_copies[8],
          g_async_copies[4]);
   g_smem_max = 0;
   g_barriers = 0;
@@ -169,16 +186,16 @@ int run(const Case& c) {
 
 int main() {
   const Case cases[] = {
-      {"f32 serving widths", 2, 5, 128, 32, 128, kF32, 0, false, false},
-      {"f32 L=200 holes T=40", 1, 7, 200, 40, 64, kF32, 0, true, true},
-      {"f32 T=64 M=32", 1, 6, 130, 64, 32, kF32, 0, false, false},
-      {"bf16 M=77 T=19", 2, 3, 77, 19, 77, kBf16, 0, false, true},
+      {"f32 serving widths", 2, 5, 128, 32, 128, kF32, 0, false, 3, 8},
+      {"f32 L=200 holes T=40", 1, 7, 200, 40, 64, kF32, 0, true, 1, 20},
+      {"f32 T=64 M=32", 1, 6, 130, 64, 32, kF32, 0, false, 4, 40},
+      {"bf16 M=77 T=19", 2, 3, 77, 19, 77, kBf16, 0, false, 2, 8},
       {"int8 f32 scales M=100 T=40", 1, 6, 100, 40, 100, kInt8F32Scales, 0,
-       false, false},
-      {"int8 bf16 scales M=33", 1, 6, 70, 8, 33, kInt8Bf16Scales, 0, true,
-       true},
-      {"residual Kc=8", 2, 3, 128, 32, 128, kResidual, 8, true, false},
-      {"residual Kc=1 M=100", 1, 6, 77, 45, 100, kResidual, 1, false, true},
+       false, 3, 32},
+      {"int8 bf16 scales M=33", 1, 6, 70, 8, 33, kInt8Bf16Scales, 0, true, 5,
+       3},
+      {"residual Kc=8", 2, 3, 128, 32, 128, kResidual, 8, true, 1, 16},
+      {"residual Kc=1 M=100", 1, 6, 77, 45, 100, kResidual, 1, false, 3, 40},
   };
   int bad = 0;
   for (const Case& c : cases) bad += run(c) != 0;

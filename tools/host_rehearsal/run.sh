@@ -22,10 +22,8 @@ mkdir -p "$WORK/src" "$WORK/inc"
 cp "$CSRC/common.cuh" "$HERE/async_copy.cuh" "$WORK/src/"
 SMEM='s/extern __shared__ __align__(16) unsigned char smem\[\];'
 SMEM="$SMEM/unsigned char* smem = smem_host;/"
-SMEM_F='s/extern __shared__ float smem_f\[\];'
-SMEM_F="$SMEM_F/float* smem_f = reinterpret_cast<float*>(smem_host);/"
 for NAME in ${*:-reveal maxsim}; do
-  sed -e "$SMEM" -e "$SMEM_F" \
+  sed -e "$SMEM" \
       -e 's/kernel<<<\(.*\)>>>(/host_launch(kernel, \1, /' \
       "$CSRC/$NAME.cu" > "$WORK/src/$NAME.cpp"
   grep -q host_launch "$WORK/src/$NAME.cpp"
