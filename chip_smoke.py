@@ -32,7 +32,21 @@ Phases, in order:
      0.4), checked against the plain version; (b) one bulk launch over the
      resident 65,536-doc f32, int8 and residual corpora against query 0 at
      tile densities 0, 0.1, 0.4 and 1, timed beside the dense kernel
-     (whose device time and bound are printed too).
+     (whose device time and bound are printed too);
+  7. continuous batching: 48 requests (phase 4's 16 queries, each under 3
+     seeds) streamed through 16 slots by ``make_streaming_step``
+     (``trip_limit=4``, retired slots refilled), on the f32 and the int8
+     corpus: every request equals one-shot ``rerank_bandit_step`` (ids,
+     reveal fraction, rounds), a stream alternating fused and chain slices
+     reveals the same cells, requests/s against one-shot batches, overlap@5
+     with dense; the fidelity knobs (``alpha_scale=1.0`` == no knob bit for
+     bit; the ``DegradeLadder``'s 4 levels) and one ``engine="vmapped"``
+     call;
+  8. research harness: ``evaluate_dataset`` on phase 4's index for exact,
+     bandit (with and without ``prereveal_ann``), batched, uniform and
+     topmargin over the first HARNESS_QUERIES queries; each H the
+     ``maxsim`` kernel computed is held to ``maxsim_plain``, and each
+     query's top-K ids and coverage to a second run with the plain H.
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -40,6 +54,7 @@ JSON. TF32 is switched off for matrix products and cuDNN, so every float32
 reference product runs in full float32.
 """
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -59,6 +74,9 @@ CORPUS = dict(n_docs=65536, doc_len=128, min_doc_len=32, query_len=32,
               dim=128, n_queries=16)
 MAX_CANDIDATES = 256
 K = 5
+STREAM_SEEDS = 3        # phase 7: each query under this many seeds
+TRIP_LIMIT = 4          # phase 7: trips per streaming slice
+HARNESS_QUERIES = 2     # phase 8: queries per method (cut to fit ~60 s)
 NEG = float(np.float32(-3e38))   # the all-masked sentinel as float32
 PAD = 512                        # spin kernels that open every profile
 
@@ -164,7 +182,8 @@ def main() -> int:
     from repro_torch.kernels.masked_maxsim import masked_maxsim_cuda, \
         masked_maxsim_plain, masked_maxsim_q_cuda
     from repro_torch.kernels.ops import masked_maxsim_op
-    from repro_torch.core.frontier import TorchDraws
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.frontier import _REV_THRESH
     from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
         gather_maxsim_plain, gather_maxsim_q_cuda
     from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
@@ -175,13 +194,19 @@ def main() -> int:
         fused_reveal_plain, fused_reveal_q_cuda
     from repro_torch.retrieval.corpus import build_corpus
     from repro_torch.retrieval.index import from_numpy
-    from repro_torch.retrieval.pipeline import candidates_for, serve_queries
+    from repro_torch.kernels.maxsim import maxsim_plain
+    from repro_torch.retrieval import pipeline
+    from repro_torch.retrieval.pipeline import candidates_for, \
+        evaluate_dataset, serve_queries
     from repro_torch.retrieval.service import gather_candidates, \
-        make_serving_step
+        init_stream_state, make_serving_step, make_streaming_step, \
+        rerank_bandit_step
+    from repro_torch.serve.resilience import DegradeLadder
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     # 1. device --------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,6 +218,7 @@ def main() -> int:
           f"{torch.version.cuda} | peaks {bw / 1e12} TB/s, "
           f"{f32_peak / 1e12} f32 TFLOP/s", flush=True)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     # 2. build ---------------------------------------------------------------
     secs = _build.build()
     print(f"build: {secs:.1f} s ({', '.join(_build.SOURCES)})", flush=True)
@@ -220,6 +246,7 @@ def main() -> int:
         print("  ptxas maxsim.cu: not built in this process (a cached "
               "library), so its spills are not checked", flush=True)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     # 3. kernels against their plain versions ---------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -656,6 +683,7 @@ def main() -> int:
                   f"max_abs_err={err:.3g} ok (rtol={RTOL}, atol={ATOL}); "
                   "== where(tile, maxsim twin, 0) bit for bit", flush=True)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     # 4. main path -------------------------------------------------------------
     t0 = time.perf_counter()
     ds = make_retrieval_dataset(**CORPUS, seed=SEED)
@@ -720,32 +748,39 @@ def main() -> int:
         ``ref_ms`` of unprofiled wall time. In a long-lived process a
         profile drops its first device records, more with every profile
         taken, so a host pause and PAD spin kernels come first and take
-        that loss; they are left out of the sums. Fails unless some pad
-        record survived (so nothing of ``fn`` was lost at the start) and,
-        where ``kernel`` is given, unless the profile holds one record
-        whose name contains it per launch that ``fn`` made of the kernels
-        named in ``launched``."""
-        with pad_profile() as prof:
-            _build.reset_launches()
-            fn()
-        n_launched = sum(_build.LAUNCHES[k] for k in launched)
-        # Device-side records only (kernels, copies, sets); CPU ops also
-        # carry their kernels' time and would count it twice.
-        avg = prof.key_averages()
-        dev = [e for e in avg if e.device_type == DeviceType.CUDA]
-        pad_kept = sum(e.count for e in dev if "spin_kernel" in e.key)
-        ev = [e for e in dev if e.key != "Command Buffer Full"
-              and "spin_kernel" not in e.key
-              and e.self_device_time_total > 0]
-        if pad_kept == 0:
-            fail(f"profile {label}: every pad record was lost, so the "
-                 "call's first device records may be too")
-        n_rec = sum(e.count for e in ev if kernel in e.key) if kernel else 0
+        that loss; they are left out of the sums. A profile counts only if
+        some pad record survived (so nothing of ``fn`` was lost at the
+        start) and, where ``kernel`` is given, if it holds one record whose
+        name contains it per launch that ``fn`` made of the kernels named
+        in ``launched``. A profile of ~27,000 device ops has dropped a
+        record or two mid-call, so an incomplete one is taken once more;
+        the run fails if the second is incomplete too."""
+        for attempt in range(2):
+            with pad_profile() as prof:
+                _build.reset_launches()
+                fn()
+            n_launched = sum(_build.LAUNCHES[k] for k in launched)
+            # Device-side records only (kernels, copies, sets); CPU ops also
+            # carry their kernels' time and would count it twice.
+            avg = prof.key_averages()
+            dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+            pad_kept = sum(e.count for e in dev if "spin_kernel" in e.key)
+            ev = [e for e in dev if e.key != "Command Buffer Full"
+                  and "spin_kernel" not in e.key
+                  and e.self_device_time_total > 0]
+            n_rec = (sum(e.count for e in ev if kernel in e.key) if kernel
+                     else 0)
+            why = ("every pad record was lost, so the call's first device "
+                   "records may be too" if pad_kept == 0 else
+                   f"{n_rec} records of {kernel} for {n_launched} launches"
+                   if kernel and n_rec != n_launched else "")
+            if not why:
+                break
+            if attempt:
+                fail(f"profile {label}: {why}")
+            print(f"profile {label}: {why}; profiling again", flush=True)
         k_ms = sum(e.self_device_time_total for e in ev
                    if kernel and kernel in e.key) / 1e3
-        if kernel and n_rec != n_launched:
-            fail(f"profile {label}: {n_rec} records of {kernel} for "
-                 f"{n_launched} launches")
         busy = sum(e.self_device_time_total for e in ev) / 1e3
         stalls = sum(e.count for e in avg if e.key == "Command Buffer Full")
         top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
@@ -817,6 +852,7 @@ def main() -> int:
     for label, kname in kernel_of.items():
         records[kname]["launches"] = launches[label][kname]
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     # 5. compressed serving ----------------------------------------------------
     # The same corpus resident as f32 ("bf16" passthrough of f32 input), int8
     # and residual (8 centroids, 10 Lloyd iterations, seed 0); every format
@@ -846,11 +882,12 @@ def main() -> int:
                    "pooled_chain": "gather_maxsim_q"}
     q_launches = dict.fromkeys(q_kernel_of.values(), 0)
     res5 = {}
+    seeds = TorchDraws().keys(SEED, nq, "cuda")     # serve_queries' seeds
     for fmt, corpus in corpora.items():
         args = (corpus.embs, corpus.mask, queries, cand.doc_ids, cand.a,
                 cand.b)
         for label, step in steps.items():
-            call = functools.partial(step, *args, TorchDraws(SEED, "cuda"))
+            call = functools.partial(step, *args, seeds)
             _build.reset_launches()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -860,8 +897,6 @@ def main() -> int:
             counts = dict(_build.LAUNCHES)
             runs = []
             for _ in range(3):
-                call = functools.partial(step, *args,
-                                         TorchDraws(SEED, "cuda"))
                 t = time.perf_counter()
                 call()
                 torch.cuda.synchronize()
@@ -879,11 +914,8 @@ def main() -> int:
                            (q_kernel_of[label], kernel_of.values()))
             rows = "DenseRows" if fmt == "f32" else "QuantRows"
             body = "maxsim_kernel" if label == "dense" else "reveal_kernel"
-            print(profiled_line(f"compressed {fmt} {label}",
-                                functools.partial(step, *args,
-                                                  TorchDraws(SEED, "cuda")),
-                                step_ms, f"{body}<{rows}", (want,)),
-                  flush=True)
+            print(profiled_line(f"compressed {fmt} {label}", call, step_ms,
+                                f"{body}<{rows}", (want,)), flush=True)
             if counts[want] == 0 or any(counts[k] for k in other):
                 fail(f"compressed {fmt} {label}: launches {counts}")
             if fmt != "f32":
@@ -918,6 +950,7 @@ def main() -> int:
     for kname, n in q_launches.items():
         records[kname]["launches"] = n
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
     # 6. tile-masked scoring ---------------------------------------------------
     # Tile grid bn = bt = 8 (the op's default); seeded random tile masks.
     BN = 8
@@ -1064,6 +1097,276 @@ def main() -> int:
     records["masked_maxsim"]["max_abs_err"] = masked_err["masked_maxsim"]
     records["masked_maxsim_q"]["launches"] = launches_b["masked_maxsim_q"]
     records["masked_maxsim_q"]["max_abs_err"] = masked_err["masked_maxsim_q"]
+
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 7. continuous batching ---------------------------------------------------
+    # 48 requests (query qi under seed group g) stream through nq slots of
+    # make_streaming_step; a harvested slot takes the next request. Each
+    # request is held to the one-shot batch step on its (query, seed).
+    bcfg = BanditConfig(k=K)
+    step_kw = dict(topk=K, alpha_ef=bcfg.alpha_ef, delta=bcfg.delta,
+                   block_docs=bcfg.block_docs,
+                   block_tokens=bcfg.block_tokens)
+    draws = TorchDraws()
+    group_seeds = [draws.keys(SEED + g, nq, "cuda")
+                   for g in range(STREAM_SEEDS)]
+    requests = [(qi, g) for g in range(STREAM_SEEDS) for qi in range(nq)]
+    n_cand, n_tok = cand.doc_ids.shape[1], queries.shape[1]
+    stream_steps = {fused: make_streaming_step(trip_limit=TRIP_LIMIT,
+                                               fused=fused, **step_kw)
+                    for fused in (True, False)}
+    whole = make_streaming_step(trip_limit=2 ** 31, **step_kw)
+    reveal_of = {"f32": ("fused_reveal", "gather_maxsim"),
+                 "int8": ("fused_reveal_q", "gather_maxsim_q")}
+    dense_ids = {"f32": out["dense"].topk_ids, "int8": res5["int8", "dense"][1]}
+
+    def stream(corpus, bodies):
+        """Serve every request through nq slots, cycling the round bodies
+        per slice; {request: (ids, frac, rounds, revealed)}, slices, s."""
+        state = init_stream_state(nq, n_cand, n_tok, device="cuda")
+        queue = list(range(len(requests)))
+        slot_r = [queue.pop(0) for _ in range(nq)]
+        fresh = torch.ones(nq, dtype=torch.bool, device="cuda")
+        got, slices = {}, 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while len(got) < len(requests):
+            qi = torch.tensor([requests[r][0] for r in slot_r], device="cuda")
+            sd = torch.stack([group_seeds[requests[r][1]][requests[r][0]]
+                              for r in slot_r])
+            _, ids, frac, _, harvest, state = stream_steps[
+                bodies[slices % len(bodies)]](
+                corpus.embs, corpus.mask, queries[qi], cand.doc_ids[qi],
+                cand.a[qi], cand.b[qi], state, fresh, sd)
+            slices += 1
+            rev = (state.cellvals < _REV_THRESH).reshape(nq, n_cand, n_tok)
+            harvest, ids, frac = harvest.cpu(), ids.cpu(), frac.cpu()
+            rounds = state.rounds.cpu()
+            refill = torch.zeros(nq, dtype=torch.bool)
+            for s_ in range(nq):
+                if harvest[s_] and slot_r[s_] not in got:
+                    got[slot_r[s_]] = (ids[s_], frac[s_], rounds[s_],
+                                       rev[s_].clone())
+                    if queue:
+                        slot_r[s_] = queue.pop(0)
+                        refill[s_] = True
+            fresh = refill.to("cuda")
+        torch.cuda.synchronize()
+        return got, slices, time.perf_counter() - t
+
+    for fmt, corpus in (("f32", corpora["f32"]), ("int8", corpora["int8"])):
+        args = (corpus.embs, corpus.mask, queries, cand.doc_ids, cand.a,
+                cand.b)
+        # One-shot: the batch step per seed group (timed), and the same
+        # pooled run as one unlimited slice for its per-query rounds.
+        one, whole_rounds = {}, {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for g in range(STREAM_SEEDS):
+            one[g] = [x.cpu() for x in rerank_bandit_step(
+                *args, group_seeds[g], **step_kw)]
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+        for g in range(STREAM_SEEDS):
+            _, w_ids, w_frac, _, _, w_state = whole(
+                *args, init_stream_state(nq, n_cand, n_tok, device="cuda"),
+                torch.ones(nq, dtype=torch.bool, device="cuda"),
+                group_seeds[g])
+            if not (torch.equal(w_ids.cpu(), one[g][1])
+                    and torch.equal(w_frac.cpu(), one[g][2])):
+                fail(f"phase 7 {fmt}: one unlimited slice differs from "
+                     "rerank_bandit_step")
+            whole_rounds[g] = w_state.rounds.cpu()
+        fused_k, chain_k = reveal_of[fmt]
+        runs = {}
+        for label, bodies in (("fused", (True,)), ("alternate", (True, False))):
+            _build.reset_launches()
+            runs[label] = stream(corpus, bodies)
+            counts = dict(_build.LAUNCHES)
+            got, slices, secs = runs[label]
+            n_reveal = counts[fused_k] + counts[chain_k]
+            if (counts[fused_k] == 0 or (label == "alternate"
+                                         and counts[chain_k] == 0)
+                    or n_reveal != sum(counts.values())):
+                fail(f"phase 7 {fmt} {label}: launches {counts}")
+            records[fused_k]["launches"] += counts[fused_k]
+            records[chain_k]["launches"] += counts[chain_k]
+            print(f"phase 7 {fmt} {label} stream: {len(requests)} requests "
+                  f"through {nq} slots, {slices} slices, {n_reveal - slices} "
+                  f"trips, {n_reveal / slices:.2f} reveal launches per slice "
+                  f"(one init + trips); launches {counts}; {secs * 1e3:.1f} "
+                  f"ms = {len(requests) / secs:.1f} requests/s", flush=True)
+        bad = []
+        for r, (qi, g) in enumerate(requests):
+            ids, frac, rounds, _ = runs["fused"][0][r]
+            if not (torch.equal(ids, one[g][1][qi])
+                    and torch.equal(frac, one[g][2][qi])
+                    and int(rounds) == int(whole_rounds[g][qi])):
+                bad.append(r)
+            if not torch.equal(runs["alternate"][0][r][3],
+                               runs["fused"][0][r][3]):
+                bad.append(r)
+        if bad:
+            fail(f"phase 7 {fmt}: requests {sorted(set(bad))} differ from "
+                 "one-shot or between the fused and alternating streams")
+        ids_all = torch.stack([runs["fused"][0][r][0]
+                               for r in range(len(requests))])
+        dense_all = torch.as_tensor(dense_ids[fmt])[
+            torch.tensor([qi for qi, _ in requests])]
+        ov = float(overlap_at_k(ids_all, dense_all).mean())
+        frac_all = float(torch.stack([runs["fused"][0][r][1]
+                                      for r in range(len(requests))]).mean())
+        print(f"phase 7 {fmt}: every request == one-shot rerank_bandit_step "
+              f"(ids, reveal fraction, rounds); alternating fused/chain "
+              f"slices reveal the same cells; one-shot {STREAM_SEEDS} "
+              f"batches of {nq} in {one_s * 1e3:.1f} ms = "
+              f"{len(requests) / one_s:.1f} requests/s against streamed "
+              f"{len(requests) / runs['fused'][2]:.1f}; overlap@{K} with "
+              f"dense {ov:.4f} (>= 0.9); mean reveal fraction "
+              f"{frac_all:.4f}; {smi}", flush=True)
+        if ov < 0.9:
+            fail(f"phase 7 {fmt}: overlap@{K} {ov} < 0.9")
+
+    # Fidelity knobs on seed group 0's batch (f32).
+    args = (index.doc_embs, index.doc_mask, queries, cand.doc_ids, cand.a,
+            cand.b, group_seeds[0])
+    base = rerank_bandit_step(*args, **step_kw)
+    knob = rerank_bandit_step(
+        *args, alpha_scale=torch.tensor(1.0, device="cuda"),
+        round_cap=torch.tensor(0, device="cuda"), **step_kw)
+    if not all(torch.equal(x, y) for x, y in zip(base, knob)):
+        fail("phase 7: alpha_scale=1.0 differs from no knob")
+    # The default ladder's 4 levels. A round cap bounds a query's rounds,
+    # so the capped levels must not reveal more than level 0 nor rise from
+    # one capped level to the next (the reference's own acceptance, BENCH_
+    # chaos "ladder_no_extra_reveal_work", is level 3 <= level 0). Level 1
+    # only scales alpha_ef: wider Serfling radii separate later, so it may
+    # reveal more than level 0; that is the reference's behaviour (its
+    # docstring, src/repro/serve/resilience.py:22-23, says the opposite) and
+    # is printed, not held.
+    ladder, fracs = DegradeLadder(), []
+    for level in range(ladder.n_levels):
+        a_s, cap = ladder.knobs(level)
+        kn = dict(alpha_scale=torch.tensor(a_s, device="cuda"),
+                  round_cap=torch.tensor(cap, device="cuda"))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, ids, frac, stats = rerank_bandit_step(*args, **kn, **step_kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        fracs.append(float(frac.mean()))
+        ov = float(overlap_at_k(ids.cpu(),
+                                torch.as_tensor(dense_ids["f32"])).mean())
+        print(f"phase 7 ladder level {level} (alpha_scale {a_s}, round_cap "
+              f"{cap}): mean reveal fraction {fracs[-1]:.4f}, total rounds "
+              f"{int(stats[1])}, {ms:.1f} ms per batch of {nq}, overlap@{K} "
+              f"with dense {ov:.4f}", flush=True)
+        if cap > 0 and int(stats[1]) > nq * cap:
+            fail(f"phase 7 ladder level {level}: {int(stats[1])} rounds "
+                 f"beyond the cap {cap} x {nq} queries")
+    capped = [lv for lv in range(ladder.n_levels)
+              if lv == 0 or ladder.knobs(lv)[1] > 0]
+    held = [fracs[lv] for lv in capped]
+    print(f"phase 7: alpha_scale=1.0 == no knob bit for bit; ladder reveal "
+          f"fractions by level {fracs}; levels {capped} (level 0 and the "
+          f"round-capped) must not rise: {held}; level 1 (alpha_scale only) "
+          f"{fracs[1] - fracs[0]:+.4f} against level 0", flush=True)
+    if any(f2 > f1 for f1, f2 in zip(held, held[1:])):
+        fail(f"phase 7: the capped levels' reveal fraction rose: {held}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, lock_ids, lock_frac, lock_stats = rerank_bandit_step(
+        *args, engine="vmapped", **step_kw)
+    torch.cuda.synchronize()
+    print(f"phase 7 engine=vmapped: {(time.perf_counter() - t) * 1e3:.1f} ms "
+          f"per batch of {nq}; overlap@{K} with pooled "
+          f"{float(overlap_at_k(lock_ids, base[1]).mean()):.4f}; "
+          f"lockstep_waste {float(lock_stats[2]):.0f} rounds (occupancy "
+          f"{float(lock_stats[0]):.4f}); mean reveal fraction "
+          f"{float(lock_frac.mean()):.4f}", flush=True)
+    if lock_ids.shape != (nq, K) or not torch.isfinite(
+            lock_stats).all():
+        fail("phase 7: malformed vmapped result")
+
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 8. research harness ------------------------------------------------------
+    # evaluate_dataset per method, H from the maxsim kernel. Every H it
+    # computed is then held to maxsim_plain on the same inputs, and the
+    # same run with H from the plain version must give each query the same
+    # top-K ids and coverage.
+    @contextlib.contextmanager
+    def swapped(name, fn):
+        old = getattr(pipeline, name)
+        setattr(pipeline, name, fn)
+        try:
+            yield old
+        finally:
+            setattr(pipeline, name, old)
+
+    def harness_run(method, h_fn, **kw):
+        rows, hs = [], []
+
+        def rerank(*a, **k):
+            rows.append(real_rerank(*a, **k))
+            return rows[-1]
+
+        def h(embs, mask, q):
+            hs.append((embs, mask, q, h_fn(embs, mask, q)))
+            return hs[-1][-1]
+
+        with swapped("rerank_query", rerank) as real_rerank, \
+                swapped("maxsim_op", h):
+            out = evaluate_dataset(ds8, method=method, k=K, bandit=bcfg,
+                                   index=index, max_candidates=MAX_CANDIDATES,
+                                   **kw)
+        return out, rows, hs
+
+    harness, err8 = {}, 0.0
+    ds8 = dataclasses.replace(ds, queries=ds.queries[:HARNESS_QUERIES],
+                              qrels=ds.qrels[:HARNESS_QUERIES])
+    for label, method, kw in (("exact", "exact", {}),
+                              ("bandit", "bandit", {}),
+                              ("bandit+prereveal_ann", "bandit",
+                               dict(prereveal_ann=True)),
+                              ("batched", "batched", {}),
+                              ("uniform", "uniform", {}),
+                              ("topmargin", "topmargin", {})):
+        _build.reset_launches()
+        t = time.perf_counter()
+        harness[label], rows, hs = harness_run(method, pipeline.maxsim_op,
+                                               **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = dict(_build.LAUNCHES)
+        if counts["maxsim"] != HARNESS_QUERIES or sum(counts.values()) != \
+                HARNESS_QUERIES:
+            fail(f"phase 8 {label}: launches {counts}")
+        records["maxsim"]["launches"] += counts["maxsim"]
+        for qi, (embs, mask, q, got) in enumerate(hs):
+            err8 = max(err8, check_close(f"phase 8 {label} query {qi} H",
+                                         got, maxsim_plain(embs, mask, q)))
+        _, plain_rows, _ = harness_run(method, maxsim_plain, **kw)
+        same = [np.array_equal(r.topk_docs, p.topk_docs)
+                and r.coverage == p.coverage
+                for r, p in zip(rows, plain_rows)]
+        if len(same) != HARNESS_QUERIES or not all(same):
+            fail(f"phase 8 {label}: top-K ids or coverage differ from the "
+                 f"run with H from maxsim_plain, per query {same}")
+        r = harness[label]
+        print(f"phase 8 {label}: {HARNESS_QUERIES} queries in {secs:.1f} s; "
+              f"coverage {r['coverage']:.4f}, overlap {r['overlap']:.4f}, "
+              f"flops_saving {r['flops_saving']:.3f}, recall "
+              f"{r['recall']:.4f}, ndcg {r['ndcg']:.4f}; launches "
+              f"{counts['maxsim']} maxsim; H == maxsim_plain within "
+              f"rtol={RTOL}, atol={ATOL}; top-K ids and coverage == the run "
+              f"with the plain H, per query", flush=True)
+    if harness["exact"]["overlap"] != 1.0 or \
+            not harness["bandit"]["coverage"] < 1.0:
+        fail("phase 8: exact must overlap 1.0 and the bandit's coverage be "
+             "below 1")
+    print(f"phase 8: max |H kernel - H plain| over every query and method "
+          f"{err8:.3g}", flush=True)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s (end)", flush=True)
 
     order = ("fused_reveal", "maxsim", "gather_maxsim", "fused_reveal_q",
              "maxsim_q", "gather_maxsim_q", "masked_maxsim", "masked_maxsim_q")

@@ -1,8 +1,17 @@
-"""Col-Bandit core: bounds, LUCB selection and the pooled reveal engine."""
-from repro_torch.core.batched import BatchedConfig
-from repro_torch.core.frontier import (DrawSource, PooledResult, TorchDraws,
-                                       run_pooled_bandit, run_pooled_oracle)
+"""Col-Bandit core: bounds, draws, the sequential, block and pooled
+bandits, baselines and metrics."""
+from repro_torch.core.bandit import BanditResult, run_bandit
+from repro_torch.core.batched import (BatchedConfig, run_batched_bandit,
+                                      run_batched_oracle)
+from repro_torch.core.draws import DrawSource, TorchDraws
+from repro_torch.core.frontier import (FrontierState, PooledResult,
+                                       init_frontier_state,
+                                       run_pooled_bandit, run_pooled_oracle,
+                                       run_pooled_slice)
 from repro_torch.core.metrics import overlap_at_k
 
-__all__ = ["BatchedConfig", "DrawSource", "PooledResult", "TorchDraws",
-           "run_pooled_bandit", "run_pooled_oracle", "overlap_at_k"]
+__all__ = ["BanditResult", "BatchedConfig", "DrawSource", "FrontierState",
+           "PooledResult", "TorchDraws", "init_frontier_state",
+           "overlap_at_k", "run_bandit", "run_batched_bandit",
+           "run_batched_oracle", "run_pooled_bandit", "run_pooled_oracle",
+           "run_pooled_slice"]

@@ -1,22 +1,33 @@
-"""Block-synchronous Col-Bandit selection and the chain body's reveal update
-(port of ``repro.core.batched``).
+"""Block-synchronous Col-Bandit (port of ``repro.core.batched``).
 
 Every round selects the ``half`` weakest winners and ``half`` strongest
 losers per query and reveals G epsilon-greedy max-width tokens for each.
 The JAX version draws its exploration coin and Gumbel noise from a key
-inside :func:`_round_select`; here the draws come in as tensors, so the
-same policy can replay JAX's draws bit for bit in the parity tests.
+inside :func:`_round_select`; here the draws come in as tensors (from a
+``core.draws.DrawSource``), so the same policy can replay JAX's draws bit
+for bit in the parity tests.
+
+:func:`run_batched_bandit` is the solo loop (one query; the lockstep
+engine of ``retrieval.service`` and ``rerank_query(method="batched")``
+run it), :func:`_round_select` and :func:`_apply_block_reveal` are shared
+with the pooled engine (``core.frontier``). The reveal is abstracted as
+``compute_cells(doc_idx (B,), tok_idx (B, G)) -> values (B, G)``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.bandit import _select_arms, _topk_mask, stable_topk
+from repro_torch.core import bounds as B
+from repro_torch.core.bandit import (BanditResult, _select_arms, _topk_mask,
+                                     stable_topk)
 from repro_torch.core.bounds import Intervals
-from repro_torch.core.state import BanditState
+from repro_torch.core.draws import TORCH_DRAWS, DrawSource
+from repro_torch.core.state import BanditState, init_state
 from repro_torch.kernels.reveal import reveal_stats
+
+CellFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _NEG = -3e38
 
@@ -130,3 +141,98 @@ def _apply_block_reveal(state: BanditState, doc_idx: torch.Tensor,
         n=state.n.index_add(0, doc_idx, new.sum(dim=-1).to(state.n.dtype)),
         total=state.total.index_add(0, doc_idx, d[:, 1]),
         total_sq=state.total_sq.index_add(0, doc_idx, d[:, 2]))
+
+
+def _max_rounds(cfg: BatchedConfig, N: int, T: int) -> int:
+    """``cfg.max_rounds``, or (N*T) // (B*G) + T + 8 when it is <= 0."""
+    if cfg.max_rounds > 0:
+        return cfg.max_rounds
+    return (N * T) // max(cfg.block_docs * cfg.block_tokens, 1) + T + 8
+
+
+def run_batched_bandit(compute_cells: CellFn, a: torch.Tensor,
+                       b: torch.Tensor, seed: torch.Tensor,
+                       cfg: BatchedConfig, *,
+                       doc_mask: Optional[torch.Tensor] = None,
+                       draws: Optional[DrawSource] = None) -> BanditResult:
+    """The solo block bandit over one query's (N, T) supports, run to
+    quiescence. ``seed`` is the query's seed for ``draws`` (default
+    :class:`~repro_torch.core.draws.TorchDraws`). One host read per round
+    (the loop's continue test)."""
+    draws = draws or TORCH_DRAWS
+    N, T = a.shape
+    dev = a.device
+    k, G = cfg.k, cfg.block_tokens
+    half = max(cfg.block_docs // 2, 1)
+    max_rounds = _max_rounds(cfg, N, T)
+    if doc_mask is None:
+        doc_mask = torch.ones((N,), dtype=torch.bool, device=dev)
+    a = torch.where(doc_mask[:, None], a, 0.0).to(torch.float32)
+    b = torch.where(doc_mask[:, None], b, 0.0).to(torch.float32)
+
+    draw, t0 = draws.init(seed.to(dev)[None], None, None, N, T)
+    state = init_state(N, T, draw)
+    state = state._replace(revealed=state.revealed | ~doc_mask[:, None])
+    all_docs = torch.arange(N, device=dev)
+    t0 = t0[0].to(device=dev, dtype=torch.int64)[:, None]
+    state = _apply_block_reveal(state, all_docs, t0,
+                                compute_cells(all_docs, t0),
+                                doc_mask[:, None])
+
+    iv_kwargs = dict(T=T, N=N, delta=cfg.delta, alpha_ef=cfg.alpha_ef,
+                     c=cfg.radius_c, bias_kappa=cfg.bias_kappa)
+
+    def get_intervals(st: BanditState) -> Intervals:
+        iv = B.intervals(st.n, st.total, st.total_sq, st.revealed, a, b,
+                         **iv_kwargs)
+        return iv._replace(s_hat=torch.where(doc_mask, iv.s_hat, _NEG),
+                           lcb=torch.where(doc_mask, iv.lcb, _NEG),
+                           ucb=torch.where(doc_mask, iv.ucb, _NEG))
+
+    def body(st: BanditState) -> BanditState:
+        iv = get_intervals(st)
+        draw, u, g = draws.round(st.draw, 2 * half, T)
+        sel = _round_select(u[0], g[0], iv, st.revealed, st.n, a, b,
+                            doc_mask, k=k, epsilon=cfg.epsilon, half=half,
+                            G=G)
+        vals = compute_cells(sel.doc_idx, sel.tok_idx)
+        nxt = _apply_block_reveal(st, sel.doc_idx, sel.tok_idx, vals,
+                                  sel.cell_ok)
+        # On stop, keep the pre-reveal observation set (don't pay for it).
+        return BanditState(*(torch.where(sel.stop, old, new) for old, new
+                             in zip(st[:5], nxt[:5])),
+                           rounds=st.rounds + 1,
+                           done=sel.stop | ~sel.cell_ok.any(), draw=draw)
+
+    while bool(~state.done & (state.rounds < max_rounds)):
+        state = body(state)
+
+    iv = get_intervals(state)
+    tk_mask, topk_idx = _topk_mask(iv.s_hat, k)
+    i_plus, i_minus = _select_arms(iv, tk_mask, doc_mask)
+    n_rev = (state.revealed & doc_mask[:, None]).sum()
+    n_cells = torch.clamp(doc_mask.sum() * T, min=1)
+    return BanditResult(
+        topk=topk_idx,
+        coverage=n_rev.to(torch.float32) / n_cells.to(torch.float32),
+        reveals=n_rev,
+        rounds=state.rounds,
+        separated=iv.lcb[i_plus] >= iv.ucb[i_minus],
+        s_hat=iv.s_hat,
+        revealed=state.revealed & doc_mask[:, None])
+
+
+def run_batched_oracle(h_full: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, seed: torch.Tensor, *,
+                       draws: Optional[DrawSource] = None,
+                       doc_mask: Optional[torch.Tensor] = None,
+                       **cfg_kw) -> BanditResult:
+    """Oracle-mode block bandit: cells come from a precomputed (N, T) H
+    matrix. ``cfg_kw`` are the :class:`BatchedConfig` fields."""
+    h = h_full.to(torch.float32)
+
+    def cells(doc_idx, tok_idx):
+        return h[doc_idx[:, None], tok_idx]
+
+    return run_batched_bandit(cells, a, b, seed, BatchedConfig(**cfg_kw),
+                              doc_mask=doc_mask, draws=draws)

@@ -66,12 +66,13 @@ def serfling_radius(
     T: int,
     N: int,
     delta: float,
-    alpha_ef: float,
+    alpha_ef,
     c: float = 1.0,
     bias_kappa: float = 0.0,
     value_range: float = 1.0,
 ) -> torch.Tensor:
-    """Variance-adaptive decision radius, Eq. 12.
+    """Variance-adaptive decision radius, Eq. 12. ``alpha_ef`` is a float
+    or a 0-d tensor.
 
     r_i = alpha_ef * T * sigma_i * sqrt(2 log(cN/delta) / n_i) * sqrt(rho_n),
     +inf where n_i <= 1. ``bias_kappa > 0`` adds the O(1/n) range term
@@ -79,14 +80,16 @@ def serfling_radius(
     """
     nf = torch.clamp(n.to(_F32), min=1.0)
     log_term = torch.log(_f32(c) * _f32(N) / _f32(delta))
-    coef = float(_f32(alpha_ef) * _f32(T))
-    r = (coef * sigma
+    # alpha_ef as a 0-d float32 tensor: a per-call fidelity knob stays on
+    # its device, so there is no host read.
+    alpha = torch.as_tensor(alpha_ef, dtype=_F32)
+    r = (alpha * _f32(T) * sigma
          * torch.sqrt(2.0 * float(log_term) / nf)
          * torch.sqrt(torch.clamp(rho_n(n, T), min=0.0)))
     if bias_kappa > 0.0:
-        bias = (_f32(alpha_ef) * _f32(bias_kappa) * _f32(T)
+        bias = (alpha * _f32(bias_kappa) * _f32(T)
                 * _f32(value_range) * log_term)
-        r = r + float(bias) / nf
+        r = r + bias / nf
     return torch.where(n <= 1, torch.full_like(r, float("inf")), r)
 
 
@@ -114,7 +117,7 @@ def intervals(
     T: int,
     N: int,
     delta: float,
-    alpha_ef: float,
+    alpha_ef,
     c: float = 1.0,
     bias_kappa: float = 0.0,
 ) -> Intervals:

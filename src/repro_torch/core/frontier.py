@@ -1,5 +1,4 @@
-"""Pooled cross-query reveal engine (port of ``repro.core.frontier``,
-one-shot path).
+"""Pooled cross-query reveal engine (port of ``repro.core.frontier``).
 
 One global loop drives all Q queries of a batch at once:
 
@@ -27,23 +26,33 @@ Two round bodies lower step 3:
 Both make identical per-query decisions from identical statistics, and
 their statistics are summed in one order, so they agree bit for bit.
 
-The JAX package's ``jax.random`` key chain is replaced by a
-:class:`DrawSource`; its streaming (``carry``/``fresh``/``trip_limit``/
-``return_state``), fidelity-knob (``alpha_scale``/``round_cap``) and
-``prereveal`` parameters are not ported yet. The loop's continue test
-reads one flag from the device per trip (one host sync per trip).
+Streaming (continuous batching): a :class:`FrontierState` is the packed
+per-slot carry both bodies read and write at the call boundary, so a run
+can pause after ``trip_limit`` trips, return its state, and resume under
+either body; ``fresh`` slots are re-initialised from the call's inputs
+while carried slots pass through. The JAX package's per-query PRNG keys
+are per-slot draw states in the carry (``core.draws``): a slot's draws
+depend only on its seed and its own trip count, so a resumed or refilled
+stream replays the one-shot run. ``alpha_scale`` / ``round_cap`` are the
+per-call fidelity knobs and ``prereveal`` seeds cells known from stage 1,
+as in JAX.
+
+Each trip is a function of tensors to tensors with no host read; the loop
+reads one flag from the device per trip (its continue test).
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple, Optional, Protocol, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import bounds as B
 from repro_torch.core.bandit import _select_arms, _topk_mask
-from repro_torch.core.batched import (BatchedConfig, _apply_block_reveal,
+from repro_torch.core.batched import (BatchedConfig, CellFn,
+                                      _apply_block_reveal, _max_rounds,
                                       _round_select)
+from repro_torch.core.draws import DRAW_WIDTH, TORCH_DRAWS, DrawSource
 from repro_torch.core.state import BanditState
 from repro_torch.kernels.reveal import reveal_stats
 
@@ -60,41 +69,32 @@ _QUAR = -3e4
 _QUAR_THRESH = -1e4
 
 
-class DrawSource(Protocol):
-    """The random draws of one pooled run — the port's counterpart of the
-    JAX package's per-query PRNG keys.
+class FrontierState(NamedTuple):
+    """Resumable pooled-frontier carry, per slot. The statistics are one
+    sentinel-encoded cell table and one packed (n, total, total_sq) block;
+    ``draw``/``rounds``/``done`` are per slot. When slot q retires the
+    host harvests it and refills it with ``fresh[q]=True`` on the next
+    call; every other slot's rows pass through untouched."""
 
-    ``init_tokens`` gives the init reveal's token per candidate
-    (``jax.random.randint`` in JAX); ``round(trip)`` gives, for every
-    query, the exploration uniforms (Q, W, 1) and Gumbel noise (Q, W, T) of
-    that global trip (``_round_select``'s ``uniform`` / ``gumbel``). Every
-    query consumes one ``round`` per trip, retired or not."""
-
-    def init_tokens(self, Q: int, N: int, T: int) -> torch.Tensor: ...
-
-    def round(self, trip: int, Q: int, W: int,
-              T: int) -> Tuple[torch.Tensor, torch.Tensor]: ...
+    cellvals: torch.Tensor   # (Q*N, T) f32 — _UNREV where unrevealed
+    stats: torch.Tensor      # (Q*N, 3) f32 — [n, total, total_sq]
+    draw: torch.Tensor       # (Q, 2) i64 — per-slot draw state
+    rounds: torch.Tensor     # (Q,) i64 — frozen at retirement
+    done: torch.Tensor       # (Q,) bool
 
 
-class TorchDraws:
-    """Draws from one ``torch.Generator`` seeded with ``seed``, on the run's
-    device. Reproducible for a seed and device; not JAX's bits."""
-
-    def __init__(self, seed: int, device="cuda"):
-        self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed)
-
-    def init_tokens(self, Q: int, N: int, T: int) -> torch.Tensor:
-        return torch.randint(0, T, (Q, N), generator=self.gen,
-                             device=self.device)
-
-    def round(self, trip: int, Q: int, W: int,
-              T: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        u = torch.rand((Q, W, 1), generator=self.gen, device=self.device)
-        v = torch.rand((Q, W, T), generator=self.gen, device=self.device)
-        tiny = torch.finfo(torch.float32).tiny
-        return u, -torch.log(-torch.log(torch.clamp(v, min=tiny)))
+def init_frontier_state(Q: int, N: int, T: int, *,
+                        device="cuda") -> FrontierState:
+    """An all-slots-empty carry: every slot retired, zero statistics, cells
+    reading as revealed-empty. Slots come alive when refilled via
+    ``fresh``."""
+    dev = torch.device(device)
+    return FrontierState(
+        cellvals=torch.zeros((Q * N, T), dtype=torch.float32, device=dev),
+        stats=torch.zeros((Q * N, 3), dtype=torch.float32, device=dev),
+        draw=torch.zeros((Q, DRAW_WIDTH), dtype=torch.int64, device=dev),
+        rounds=torch.zeros((Q,), dtype=torch.int64, device=dev),
+        done=torch.ones((Q,), dtype=torch.bool, device=dev))
 
 
 class PooledResult(NamedTuple):
@@ -110,9 +110,6 @@ class PooledResult(NamedTuple):
     lockstep_waste: torch.Tensor  # () i64 — Q*trips - total_rounds
     occupancy: torch.Tensor       # () f32 — mean live share of frontier slots
     quarantined: torch.Tensor     # (Q,) i64 — docs with a non-finite cell
-
-
-CellFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _with_stats(compute_cells: CellFn) -> Callable:
@@ -151,30 +148,79 @@ def _scatter_min(table: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         0, lin, src.reshape(-1), "amin").reshape(R, T)
 
 
+def _rows_to(table: torch.Tensor, dump: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
+    """Scatter ``rows`` into ``table`` at row indices ``dump``."""
+    return table.scatter(0, dump[:, None].expand_as(rows), rows)
+
+
+def _knob(x, dtype) -> torch.Tensor:
+    """A per-call knob as a 0-d tensor: a Python number becomes a CPU
+    scalar (an operand that costs no launch), a 0-d tensor stays on its
+    device."""
+    return torch.as_tensor(x, dtype=dtype)
+
+
 def run_pooled_bandit(
     compute_cells: CellFn,
     a: torch.Tensor,                # (Q, N, T) lower support per cell
     b: torch.Tensor,                # (Q, N, T) upper support per cell
-    draws: DrawSource,
+    seeds: torch.Tensor,            # (Q, ...) per-query seeds of ``draws``
     cfg: BatchedConfig,
     *,
+    draws: Optional[DrawSource] = None,      # default TorchDraws
     doc_mask: Optional[torch.Tensor] = None,   # (Q, N) bool valid candidates
     compute_cells_fused: Optional[Callable] = None,  # derived when omitted
     fused: bool = True,
-) -> PooledResult:
-    """Run the pooled bandit to quiescence and return per-query results.
+    prereveal: Optional[torch.Tensor] = None,       # (Q, N, T) bool known
+    prereveal_vals: Optional[torch.Tensor] = None,  # (Q, N, T) their values
+    carry: Optional[FrontierState] = None,   # resume from a prior slice
+    fresh: Optional[torch.Tensor] = None,    # (Q,) bool slots to (re)init
+    trip_limit: int = 0,                     # > 0: pause after this many
+    return_state: bool = False,
+    alpha_scale=None,                        # () f32 >= 1: fidelity knob
+    round_cap=None,                          # () int: round cap (<= 0 off)
+):
+    """Run the pooled bandit and return per-query results.
 
     ``compute_cells(flat_doc (S,), flat_tok (S, G)) -> (S, G)`` reveals
     cells of the stacked axes (doc q*N+i pairs only with tokens q*T+t of
     the same query); ``compute_cells_fused(flat_doc, flat_tok, new_mask)
     -> (vals (S, G), stats (S, 3))`` is the fused contract.
 
+    ``prereveal``/``prereveal_vals`` seed the bandit with cells whose exact
+    values an earlier stage computed (stage-1 hits, Eq. 15): they enter
+    the statistics before round 0 at zero reveal cost and are never
+    re-revealed; non-finite seeds are quarantined like revealed cells.
+
+    Streaming: ``carry`` resumes from a prior call's :class:`FrontierState`;
+    ``fresh`` (default all-False with a carry, forced all-True without)
+    marks the slots re-initialised from this call's ``a``/``b``/``seeds``/
+    ``prereveal`` (init reveal included, prereveal masked to fresh slots),
+    while carried slots' statistics, draws, rounds and ``done`` pass
+    through. Carried slots' inputs must be re-presented unchanged.
+    ``trip_limit > 0`` pauses after that many trips; a slot's results are
+    final once its ``done`` is set. ``return_state=True`` returns
+    ``(PooledResult, FrontierState)``.
+
+    Fidelity knobs (Python numbers or 0-d tensors on the run's device):
+    ``alpha_scale`` multiplies ``alpha_ef`` (``1.0`` is bit-identical to
+    ``None``); ``round_cap > 0`` caps the rounds at ``min(max_rounds,
+    round_cap)``.
+
     Finite-score guard (always on): a revealed cell that comes back
     non-finite is recorded as ``_QUAR``; its doc is excluded from the
     final top-K and counted in ``PooledResult.quarantined``.
     """
+    draws = draws or TORCH_DRAWS
     Q, N, T = a.shape
     dev = a.device
+    if carry is None:
+        fresh = torch.ones((Q,), dtype=torch.bool, device=dev)
+    elif fresh is None:
+        fresh = torch.zeros((Q,), dtype=torch.bool, device=dev)
+    fresh = fresh.to(device=dev, dtype=torch.bool)
+    fresh_rows = fresh.repeat_interleave(N)                     # (Q*N,)
     k = cfg.k
     G = cfg.block_tokens
     half = max(cfg.block_docs // 2, 1)
@@ -184,24 +230,42 @@ def run_pooled_bandit(
     W = 2 * half_w                           # per-query selection rows
     G_cap = min(max(cfg.max_block_tokens, G), max(T, 1))  # token sel width
     F = Q * 2 * half                         # frontier capacity (slots)
-    max_rounds = cfg.max_rounds
-    if max_rounds <= 0:
-        max_rounds = (N * T) // max(cfg.block_docs * G, 1) + T + 8
+    max_rounds = _max_rounds(cfg, N, T)
+    if round_cap is not None:
+        rc = _knob(round_cap, torch.int64)
+        max_rounds = torch.where(rc > 0, torch.clamp(rc, max=max_rounds),
+                                 max_rounds)
     if doc_mask is None:
         doc_mask = torch.ones((Q, N), dtype=torch.bool, device=dev)
     a = torch.where(doc_mask[:, :, None], a, 0.0).to(torch.float32)
     b = torch.where(doc_mask[:, :, None], b, 0.0).to(torch.float32)
 
+    pr_flat = pv_flat = None
+    if prereveal is not None:
+        pr_flat = (prereveal & doc_mask[:, :, None]).reshape(Q * N, T)
+        if carry is not None:
+            # Seeds belong to the query entering a slot; a carried slot
+            # absorbed its own at its fresh call.
+            pr_flat = pr_flat & fresh_rows[:, None]
+        pv_flat = torch.where(pr_flat, prereveal_vals.reshape(Q * N, T).to(
+            torch.float32), 0.0)
+        pv_flat = _sanitize(pv_flat)
+
     q_doc_off = (torch.arange(Q, device=dev) * N)[:, None]       # (Q, 1)
     tok_off = (torch.arange(Q * N, device=dev) // N * T)[:, None]
 
-    # Init reveal (paper footnote 2): one random cell per doc, all queries
-    # pooled into a single (Q*N, 1) reveal.
-    t0 = draws.init_tokens(Q, N, T).to(device=dev, dtype=torch.int64)
+    # Per-slot draw state and the init reveal's token per candidate (paper
+    # footnote 2: one random cell per doc, all queries in one reveal).
+    draw0, t0 = draws.init(seeds.to(dev), fresh,
+                           None if carry is None else carry.draw, N, T)
     all_docs = torch.arange(Q * N, device=dev)
-    flat_t0 = t0.reshape(Q * N, 1)
+    flat_t0 = t0.to(device=dev, dtype=torch.int64).reshape(Q * N, 1)
 
-    iv_kwargs = dict(T=T, N=N, delta=cfg.delta, alpha_ef=cfg.alpha_ef,
+    # serfling_radius is linear in alpha_ef, so the scale is exact; a scale
+    # of 1.0 (no knob) is an IEEE identity.
+    alpha_ef = B._f32(cfg.alpha_ef) * _knob(
+        1.0 if alpha_scale is None else alpha_scale, torch.float32)
+    iv_kwargs = dict(T=T, N=N, delta=cfg.delta, alpha_ef=alpha_ef,
                      c=cfg.radius_c, bias_kappa=cfg.bias_kappa)
 
     def get_intervals(n_q, total_q, total_sq_q, revealed_q) -> B.Intervals:
@@ -215,10 +279,11 @@ def run_pooled_bandit(
     select = functools.partial(_round_select, k=k, epsilon=cfg.epsilon,
                                half=half_w, G=G_cap)
 
-    def select_round(trip, iv, revealed_q, n_q, active, *, compact):
-        """Shared round front-end: per-query LUCB selection, capacity
-        allotment over both growth axes, and frontier pooling."""
-        explore_u, gumbel = draws.round(trip, Q, W, T)
+    def select_round(draw, iv, revealed_q, n_q, active, *, compact):
+        """Shared round front-end: every slot's draws, per-query LUCB
+        selection, capacity allotment over both growth axes, and frontier
+        pooling."""
+        draw, explore_u, gumbel = draws.round(draw, W, T)
         sel = select(explore_u.to(dev), gumbel.to(dev), iv, revealed_q, n_q,
                      a, b, doc_mask)
 
@@ -258,7 +323,7 @@ def run_pooled_bandit(
             # feed the launch directly (dead slots are masked no-ops).
             f_doc, f_tok, f_cell = flat_doc, flat_tok, flat_cell
         occ = slot_live.to(torch.float32).sum() / float(F)
-        return sel, f_doc, f_tok, f_cell, no_progress, occ
+        return draw, sel, f_doc, f_tok, f_cell, no_progress, occ
 
     def finalize(n, total, total_sq, revealed, rounds, trips, occ_sum,
                  quar_doc) -> PooledResult:
@@ -286,42 +351,70 @@ def run_pooled_bandit(
             revealed=rev_q,
             trips=trips_t,
             total_rounds=total_rounds,
+            # Clamped: on a resumed slice, carried-in rounds can exceed
+            # this slice's Q*trips.
             lockstep_waste=torch.clamp(Q * trips_t - total_rounds, min=0),
             occupancy=occ_sum / max(float(trips), 1.0),
             quarantined=quar_q.sum(dim=1),
         )
 
-    def running(done, rounds) -> Tuple[torch.Tensor, bool]:
-        active = ~done & (rounds < max_rounds)
-        return active, bool(active.any())     # the one host sync per trip
+    def run_loop(trip, state):
+        """Trips until no slot is active or ``trip_limit`` is reached: one
+        host read per trip (the continue test), none inside ``trip``."""
+        trips = 0
+        occ_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        while trip_limit <= 0 or trips < trip_limit:
+            active = ~state.done & (state.rounds < max_rounds)
+            if not bool(active.any()):
+                break
+            state, occ = trip(state, active)
+            occ_sum = occ_sum + occ
+            trips += 1
+        return state, trips, occ_sum
 
     # Queries with NO valid candidate start retired (rounds stay 0).
-    done = ~doc_mask.any(dim=1)
-    rounds = torch.zeros((Q,), dtype=torch.int64, device=dev)
-    occ_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    trips = 0
+    done0 = ~doc_mask.any(dim=1)
+    rounds0 = torch.zeros((Q,), dtype=torch.int64, device=dev)
+    if carry is not None:
+        done0 = torch.where(fresh, done0, carry.done)
+        rounds0 = torch.where(fresh, rounds0, carry.rounds)
 
     if fused:
         cells_fused = (compute_cells_fused if compute_cells_fused is not None
                        else _with_stats(compute_cells))
         flat_mask = doc_mask.reshape(Q * N)
         new0 = flat_mask[:, None]                               # (Q*N, 1)
-        vals0, stats = cells_fused(all_docs, flat_t0 + tok_off, new0)
-        vals0, stats = _guarded_stats(vals0, new0, stats)
-        cellvals = torch.where(flat_mask[:, None],
-                               torch.full((Q * N, T), _UNREV, device=dev),
-                               0.0)
-        cellvals = _scatter_min(cellvals, all_docs, flat_t0,
-                                torch.where(new0, vals0, _UNREV))
-        active, go = running(done, rounds)
-        while go:
-            revealed = cellvals < _REV_THRESH                    # (Q*N, T)
-            n_q = stats[:, 0].reshape(Q, N)
-            iv = get_intervals(n_q, stats[:, 1].reshape(Q, N),
-                               stats[:, 2].reshape(Q, N),
+        if carry is not None:
+            new0 = new0 & fresh_rows[:, None]
+        if pr_flat is not None:
+            # An init cell stage 1 already revealed is not new: it enters
+            # the statistics once, as the chain body's ``already`` skip.
+            new0 = new0 & ~torch.gather(pr_flat, 1, flat_t0)
+        vals0, stats0 = cells_fused(all_docs, flat_t0 + tok_off, new0)
+        vals0, stats0 = _guarded_stats(vals0, new0, stats0)
+        cellvals0 = torch.where(flat_mask[:, None],
+                                torch.full((Q * N, T), _UNREV, device=dev),
+                                0.0)
+        if pr_flat is not None:
+            cellvals0 = torch.where(pr_flat, pv_flat, cellvals0)
+            stats0 = stats0 + torch.stack(
+                [pr_flat.sum(-1).to(torch.float32), pv_flat.sum(-1),
+                 (pv_flat * pv_flat).sum(-1)], dim=-1)
+        cellvals0 = _scatter_min(cellvals0, all_docs, flat_t0,
+                                 torch.where(new0, vals0, _UNREV))
+        if carry is not None:
+            cellvals0 = torch.where(fresh_rows[:, None], cellvals0,
+                                    carry.cellvals)
+            stats0 = torch.where(fresh_rows[:, None], stats0, carry.stats)
+
+        def fused_trip(st: FrontierState, active):
+            revealed = st.cellvals < _REV_THRESH                 # (Q*N, T)
+            n_q = st.stats[:, 0].reshape(Q, N)
+            iv = get_intervals(n_q, st.stats[:, 1].reshape(Q, N),
+                               st.stats[:, 2].reshape(Q, N),
                                revealed.reshape(Q, N, T))
-            sel, f_doc, f_tok, f_cell, no_progress, occ = select_round(
-                trips, iv, revealed.reshape(Q, N, T), n_q, active,
+            draw, sel, f_doc, f_tok, f_cell, no_progress, occ = select_round(
+                st.draw, iv, revealed.reshape(Q, N, T), n_q, active,
                 compact=half_w > half)
             # One fused reveal launch + a two-scatter state update. The
             # selection only emits unrevealed cells, so f_cell IS the
@@ -329,17 +422,22 @@ def run_pooled_bandit(
             new = f_cell
             vals, dstats = cells_fused(f_doc, f_tok + tok_off[f_doc], new)
             vals, dstats = _guarded_stats(vals, new, dstats)
-            cellvals = _scatter_min(cellvals, f_doc, f_tok,
-                                    torch.where(new, vals, _UNREV))
-            stats = stats.index_add(0, f_doc, dstats)
-            rounds = rounds + active.to(torch.int64)
-            done = done | (active & (sel.stop | no_progress))
-            trips += 1
-            occ_sum = occ_sum + occ
-            active, go = running(done, rounds)
-        return finalize(stats[:, 0], stats[:, 1], stats[:, 2],
-                        cellvals < _REV_THRESH, rounds, trips, occ_sum,
-                        (cellvals <= _QUAR_THRESH).any(dim=-1))
+            return FrontierState(
+                cellvals=_scatter_min(st.cellvals, f_doc, f_tok,
+                                      torch.where(new, vals, _UNREV)),
+                stats=st.stats.index_add(0, f_doc, dstats),
+                draw=draw,
+                rounds=st.rounds + active.to(torch.int64),
+                done=st.done | (active & (sel.stop | no_progress))), occ
+
+        state, trips, occ_sum = run_loop(
+            fused_trip, FrontierState(cellvals0, stats0, draw0, rounds0,
+                                      done0))
+        res = finalize(state.stats[:, 0], state.stats[:, 1],
+                       state.stats[:, 2], state.cellvals < _REV_THRESH,
+                       state.rounds, trips, occ_sum,
+                       (state.cellvals <= _QUAR_THRESH).any(dim=-1))
+        return (res, state) if return_state else res
 
     # Chain round body: abstract cell gather + the _apply_block_reveal
     # update over a stacked BanditState.
@@ -349,44 +447,89 @@ def run_pooled_bandit(
         n=torch.zeros((Q * N,), dtype=torch.int64, device=dev),
         total=torch.zeros((Q * N,), dtype=torch.float32, device=dev),
         total_sq=torch.zeros((Q * N,), dtype=torch.float32, device=dev),
-        rounds=rounds, done=done)
+        rounds=rounds0, done=done0, draw=draw0)
+    if carry is not None:
+        # Unpack the sentinel encoding for carried rows (fresh rows keep the
+        # cold start): revealed <=> below the threshold, unrevealed = 0.
+        c_rev = carry.cellvals < _REV_THRESH
+        fr = fresh_rows[:, None]
+        state = state._replace(
+            values=torch.where(fr, state.values,
+                               torch.where(c_rev, carry.cellvals, 0.0)),
+            revealed=torch.where(fr, state.revealed, c_rev),
+            n=torch.where(fresh_rows, state.n,
+                          carry.stats[:, 0].to(torch.int64)),
+            total=torch.where(fresh_rows, state.total, carry.stats[:, 1]),
+            total_sq=torch.where(fresh_rows, state.total_sq,
+                                 carry.stats[:, 2]))
+    if pr_flat is not None:
+        # Seed the statistics; the init reveal then skips these cells via
+        # _apply_block_reveal's ``already`` check.
+        state = state._replace(
+            values=state.values + pv_flat,
+            revealed=state.revealed | pr_flat,
+            n=state.n + pr_flat.sum(-1),
+            total=state.total + pv_flat.sum(-1),
+            total_sq=state.total_sq + (pv_flat * pv_flat).sum(-1))
+    init_valid = doc_mask.reshape(Q * N, 1)
+    if carry is not None:
+        init_valid = init_valid & fresh_rows[:, None]
     init_vals = _sanitize(compute_cells(all_docs, flat_t0 + tok_off))
     state = _apply_block_reveal(state, all_docs, flat_t0, init_vals,
-                                doc_mask.reshape(Q * N, 1))
-    active, go = running(state.done, state.rounds)
-    while go:
-        iv = get_intervals(state.n.reshape(Q, N), state.total.reshape(Q, N),
-                           state.total_sq.reshape(Q, N),
-                           state.revealed.reshape(Q, N, T))
-        sel, f_doc, f_tok, f_cell, no_progress, occ = select_round(
-            trips, iv, state.revealed.reshape(Q, N, T),
-            state.n.reshape(Q, N), active, compact=True)
+                                init_valid)
+
+    def chain_trip(st: BanditState, active):
+        iv = get_intervals(st.n.reshape(Q, N), st.total.reshape(Q, N),
+                           st.total_sq.reshape(Q, N),
+                           st.revealed.reshape(Q, N, T))
+        draw, sel, f_doc, f_tok, f_cell, no_progress, occ = select_round(
+            st.draw, iv, st.revealed.reshape(Q, N, T), st.n.reshape(Q, N),
+            active, compact=True)
         vals = _sanitize(compute_cells(f_doc, f_tok + tok_off[f_doc]))
-        state = _apply_block_reveal(state, f_doc, f_tok, vals, f_cell)
+        nxt = _apply_block_reveal(st, f_doc, f_tok, vals, f_cell)
         # A query that separates this round reveals nothing (its slots were
         # masked out of the frontier) and retires with rounds+1.
-        state = state._replace(
-            rounds=state.rounds + active.to(torch.int64),
-            done=state.done | (active & (sel.stop | no_progress)))
-        trips += 1
-        occ_sum = occ_sum + occ
-        active, go = running(state.done, state.rounds)
-    return finalize(state.n, state.total, state.total_sq, state.revealed,
-                    state.rounds, trips, occ_sum,
-                    (state.revealed & (state.values <= _QUAR_THRESH)
-                     ).any(dim=-1))
+        return nxt._replace(
+            draw=draw, rounds=st.rounds + active.to(torch.int64),
+            done=st.done | (active & (sel.stop | no_progress))), occ
+
+    state, trips, occ_sum = run_loop(chain_trip, state)
+    res = finalize(state.n, state.total, state.total_sq, state.revealed,
+                   state.rounds, trips, occ_sum,
+                   (state.revealed & (state.values <= _QUAR_THRESH)
+                    ).any(dim=-1))
+    if not return_state:
+        return res
+    # Pack back to the sentinel encoding, the slice boundary format of both
+    # bodies.
+    return res, FrontierState(
+        cellvals=torch.where(state.revealed, state.values, _UNREV),
+        stats=torch.stack([state.n.to(torch.float32), state.total,
+                           state.total_sq], dim=-1),
+        draw=state.draw, rounds=state.rounds, done=state.done)
 
 
-def _rows_to(table: torch.Tensor, dump: torch.Tensor,
-             rows: torch.Tensor) -> torch.Tensor:
-    """Scatter ``rows`` into ``table`` at row indices ``dump``."""
-    return table.scatter(0, dump[:, None].expand_as(rows), rows)
+def run_pooled_slice(compute_cells: CellFn, a: torch.Tensor, b: torch.Tensor,
+                     seeds: torch.Tensor, cfg: BatchedConfig,
+                     carry: FrontierState, fresh: torch.Tensor, *,
+                     trip_limit: int, **kw) -> Tuple[PooledResult,
+                                                      FrontierState]:
+    """One bounded segment of the pooled bandit, the continuous-batching
+    step: resume from ``carry``, re-initialise the ``fresh`` slots from
+    this call's ``a``/``b``/``seeds`` (and ``prereveal``/``doc_mask`` via
+    ``**kw``), run at most ``trip_limit`` trips and return ``(PooledResult,
+    FrontierState)``. The host harvests slots whose returned ``done`` is
+    set, marks them fresh and calls again. Start a stream from
+    :func:`init_frontier_state` with ``fresh`` all-True."""
+    return run_pooled_bandit(compute_cells, a, b, seeds, cfg, carry=carry,
+                             fresh=fresh, trip_limit=trip_limit,
+                             return_state=True, **kw)
 
 
 def run_pooled_oracle(h_full: torch.Tensor, a: torch.Tensor,
-                      b: torch.Tensor, draws: DrawSource, *,
-                      fused: bool = True, doc_mask=None,
-                      **cfg_kw) -> PooledResult:
+                      b: torch.Tensor, seeds: torch.Tensor, *,
+                      draws: Optional[DrawSource] = None, fused: bool = True,
+                      doc_mask=None, **cfg_kw) -> PooledResult:
     """Oracle-mode pooled engine: cells come from a precomputed (Q, N, T)
     H tensor. Flat token ids map back to each slot's own query (doc q*N+i
     only ever pairs with tokens q*T+t). ``cfg_kw`` are the
@@ -398,5 +541,5 @@ def run_pooled_oracle(h_full: torch.Tensor, a: torch.Tensor,
         t_local = flat_tok - (flat_doc // N * T)[:, None]
         return h_flat[flat_doc[:, None], torch.clamp(t_local, 0, T - 1)]
 
-    return run_pooled_bandit(cells, a, b, draws, BatchedConfig(**cfg_kw),
-                             doc_mask=doc_mask, fused=fused)
+    return run_pooled_bandit(cells, a, b, seeds, BatchedConfig(**cfg_kw),
+                             draws=draws, doc_mask=doc_mask, fused=fused)

@@ -258,7 +258,7 @@ def build_corpus(embs, mask, *, mesh=None, n_centroids: int = 0,
     if mesh is not None:
         raise NotImplementedError(
             "build_corpus(mesh=...): the mesh-resident corpus belongs to "
-            "sharded serving, ROADMAP queue 1 item 8, not ported yet")
+            "sharded serving, which is not ported yet")
     src = embs if isinstance(embs, torch.Tensor) else torch.as_tensor(
         np.asarray(embs))
     dmask = torch.as_tensor(_host(mask).astype(bool))

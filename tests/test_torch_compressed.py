@@ -27,7 +27,7 @@ from repro_torch.retrieval.corpus import build_corpus
 from repro_torch.retrieval.index import from_numpy
 from repro_torch.retrieval.pipeline import candidates_for, serve_queries
 from repro_torch.retrieval.service import make_serving_step
-from test_torch_core import JaxReplayDraws
+from test_torch_core import JaxReplayDraws, key_data
 
 K = 5
 STAGE1 = dict(kprime=10, max_candidates=32)
@@ -75,10 +75,11 @@ def _port_step(fmt, name, engine=None):
     corpus = build_corpus(ds.doc_embs, ds.doc_mask, corpus_format=fmt,
                           device="cpu")
     flavor, default_engine = CALLS[name]
-    step = make_serving_step(flavor, topk=K, engine=engine or default_engine)
-    keys = jax.random.split(jax.random.key(seed), q.shape[0])
+    step = make_serving_step(flavor, topk=K, engine=engine or default_engine,
+                             draws=JaxReplayDraws())
+    seeds = key_data(jax.random.split(jax.random.key(seed), q.shape[0]))
     out = step(corpus.embs, corpus.mask, q, cand.doc_ids, cand.a, cand.b,
-               JaxReplayDraws(keys))
+               seeds)
     return tuple(x.numpy() for x in out)
 
 

@@ -27,38 +27,72 @@ from repro_torch.core.state import BanditState
 from repro_torch.data import synthetic as tsynthetic
 
 
+def key_data(keys) -> torch.Tensor:
+    """JAX keys -> their data words as an int64 tensor (a seed or draw
+    state of :class:`JaxReplayDraws`)."""
+    return torch.from_numpy(
+        np.asarray(jax.random.key_data(keys)).astype(np.int64))
+
+
+def _wrap(t: torch.Tensor):
+    return jax.random.wrap_key_data(
+        jnp.asarray(t.cpu().numpy().astype(np.uint32)))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _jax_init(keys, N, T):
+    state, k_init = jax.vmap(lambda k: tuple(jax.random.split(k)))(keys)
+    t0 = jax.vmap(lambda k: jax.random.randint(k, (N,), 0, T))(k_init)
+    return jax.random.key_data(state), t0
+
+
 @functools.partial(jax.jit, static_argnums=(1, 2))
 def _jax_round(state, W, T):
     def one(k):
         k2, k_eps, k_tok = jax.random.split(k, 3)
-        return (k2, jax.random.uniform(k_eps, (W, 1)),
+        return (jax.random.key_data(k2), jax.random.uniform(k_eps, (W, 1)),
                 jax.random.gumbel(k_tok, (W, T)))
     return jax.vmap(one)(state)
 
 
 class JaxReplayDraws:
-    """A ``DrawSource`` that replays the JAX pooled engine's key chain:
-    per query ``state, k_init = split(key)``, ``randint(k_init)`` for the
-    init reveal, then every trip ``state, k_eps, k_tok = split(state, 3)``
-    with ``uniform(k_eps, (W, 1))`` and ``gumbel(k_tok, (W, T))``."""
+    """A ``DrawSource`` that replays the JAX package's key chain. Seeds and
+    draw states are JAX keys' data words (``key_data``). Per slot
+    ``state, k_init = split(key)`` and ``randint(k_init)`` for the init
+    reveal, masked to fresh slots as ``where(fresh, split(keys)[0],
+    carry.key)``; every trip ``state, k_eps, k_tok = split(state, 3)`` with
+    ``uniform(k_eps, (W, 1))`` and ``gumbel(k_tok, (W, T))``; Algorithm 1's
+    ``split(key, 3)`` start; ``uniform(key, shape)`` for Doc-Uniform."""
 
-    def __init__(self, keys):
-        self.keys = keys
-        self.state = None
-        self.trips = 0
+    def key(self, seed, device="cuda"):
+        return key_data(jax.random.key(seed)).to(device)
 
-    def init_tokens(self, Q, N, T):
-        state, k_init = jax.vmap(lambda k: tuple(jax.random.split(k)))(
-            self.keys)
-        self.state = state
-        t0 = jax.vmap(lambda k: jax.random.randint(k, (N,), 0, T))(k_init)
-        return torch.from_numpy(np.array(t0)).long()
+    def keys(self, seed, n, device="cuda"):
+        return key_data(jax.random.split(jax.random.key(seed), n)).to(device)
 
-    def round(self, trip, Q, W, T):
-        assert trip == self.trips, "draws are consumed one trip at a time"
-        self.trips += 1
-        self.state, u, g = _jax_round(self.state, W, T)
-        return torch.from_numpy(np.array(u)), torch.from_numpy(np.array(g))
+    def init(self, seeds, fresh, state, N, T):
+        new, t0 = _jax_init(_wrap(seeds), N, T)
+        new, t0 = _t(new).long(), _t(t0).long()
+        if state is not None and fresh is not None:
+            new = torch.where(fresh.cpu()[:, None], new, state.cpu())
+        return new.to(seeds.device), t0.to(seeds.device)
+
+    def round(self, state, W, T):
+        new, u, g = _jax_round(_wrap(state), W, T)
+        return (_t(new).long().to(state.device), _t(u).to(state.device),
+                _t(g).to(state.device))
+
+    def init_alg1(self, seed, N, T, n_warm):
+        key, k_init, k_warm = jax.random.split(_wrap(seed), 3)
+        t0 = jax.random.randint(k_init, (N,), 0, T)
+        warm = jax.random.permutation(k_warm, N * T)[:n_warm]
+        return (key_data(key)[None].to(seed.device),
+                _t(t0).long().to(seed.device),
+                _t(warm).long().to(seed.device))
+
+    def uniform(self, seed, shape):
+        return _t(jax.random.uniform(_wrap(seed), tuple(shape))).to(
+            seed.device)
 
 
 def _t(x):
@@ -262,8 +296,9 @@ def jax_oracle_runs():
 
 def _port_oracle(case, fused):
     H, a, b, mask, keys, kw = _oracle_inputs(case)
-    return run_pooled_oracle(_t(H), _t(a), _t(b), JaxReplayDraws(keys),
-                             fused=fused, doc_mask=_t(mask), **kw)
+    return run_pooled_oracle(_t(H), _t(a), _t(b), key_data(keys),
+                             draws=JaxReplayDraws(), fused=fused,
+                             doc_mask=_t(mask), **kw)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "chain"])

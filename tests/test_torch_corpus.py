@@ -206,7 +206,8 @@ def test_gather_candidates_on_an_index_matches_jax_index_gather():
 
 def test_build_corpus_guards():
     ds = _dataset(10, n_docs=6)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="sharded serving, which is not ported yet"):
         tc.build_corpus(ds.doc_embs, ds.doc_mask, mesh=object(),
                         device="cpu")
     with pytest.raises(ValueError, match="unknown corpus format"):

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import BanditConfig
-from repro_torch.core.frontier import TorchDraws
+from repro_torch.core.draws import TorchDraws
 from repro_torch.data.synthetic import make_retrieval_dataset
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.gather_maxsim import gather_maxsim_cuda, \
@@ -42,8 +42,10 @@ from repro_torch.kernels.reveal import fused_reveal_cuda, \
     fused_reveal_plain, fused_reveal_q_cuda
 from repro_torch.retrieval.corpus import build_corpus
 from repro_torch.retrieval.index import from_numpy
-from repro_torch.retrieval.pipeline import candidates_for, serve_queries
-from repro_torch.retrieval.service import make_serving_step
+from repro_torch.retrieval.pipeline import candidates_for, \
+    rerank_query, serve_queries
+from repro_torch.retrieval.service import init_stream_state, \
+    make_serving_step, make_streaming_step, rerank_bandit_step
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -239,7 +241,7 @@ def test_compressed_serving_launches_the_q_kernels(card, fmt):
                            ("pooled_chain", "gather_maxsim_q")):
         _build.reset_launches()
         out[engine] = make_serving_step("bandit", topk=5, engine=engine)(
-            *args, TorchDraws(0, card))
+            *args, TorchDraws().keys(0, q.shape[0], card))
         assert _build.LAUNCHES[kernel] > 0
         assert _build.LAUNCHES["fused_reveal"] == 0
         assert _build.LAUNCHES["gather_maxsim"] == 0
@@ -533,3 +535,100 @@ def test_maxsim_raises_beyond_shared_memory(card):
     assert _build.LAUNCHES["maxsim_q"] == 1
     assert _build.LAUNCHES["masked_maxsim_q"] == 1
     assert _build.LAUNCHES["masked_maxsim"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the streaming API, the fidelity knobs, the lockstep engine and the
+# research harness on the card
+# ---------------------------------------------------------------------------
+
+def test_torch_draws_on_the_card_equal_the_cpu_bits(card):
+    """Integer bits and uniforms are equal on both devices bit for bit; the
+    Gumbel transform's log may round differently, so to 1e-6."""
+    draws = TorchDraws()
+    seeds = draws.keys(3, 6, card)
+    assert torch.equal(seeds.cpu(), draws.keys(3, 6, "cpu"))
+    s_dev, t_dev = draws.init(seeds, None, None, 40, 32)
+    s_cpu, t_cpu = draws.init(seeds.cpu(), None, None, 40, 32)
+    assert torch.equal(t_dev.cpu(), t_cpu) and torch.equal(s_dev.cpu(),
+                                                           s_cpu)
+    for _ in range(3):
+        s_dev, u_dev, g_dev = draws.round(s_dev, 8, 32)
+        s_cpu, u_cpu, g_cpu = draws.round(s_cpu, 8, 32)
+        assert torch.equal(u_dev.cpu(), u_cpu)
+        torch.testing.assert_close(g_dev.cpu(), g_cpu, rtol=1e-6, atol=1e-6)
+
+
+def _stream_case(card, fmt):
+    ds = make_retrieval_dataset(n_docs=256, n_queries=6, doc_len=32,
+                                min_doc_len=8, query_len=16, dim=64, seed=8)
+    idx = from_numpy(ds.doc_embs, ds.doc_mask, ds.doc_lens, device=card)
+    q = torch.as_tensor(ds.queries, device=card)
+    cand = candidates_for(idx.doc_embs, idx.doc_mask, q, kprime=10,
+                          max_candidates=64, support=(0.0, 1.0))
+    corpus = build_corpus(ds.doc_embs, ds.doc_mask, corpus_format=fmt,
+                          device=card)
+    return corpus, q, cand, TorchDraws().keys(8, q.shape[0], card)
+
+
+@pytest.mark.parametrize("fmt,kernel", [("bf16", "fused_reveal"),
+                                        ("int8", "fused_reveal_q")])
+def test_streaming_step_on_the_card_equals_one_shot(card, fmt, kernel):
+    corpus, q, cand, seeds = _stream_case(card, fmt)
+    one = rerank_bandit_step(corpus.embs, corpus.mask, q, cand.doc_ids,
+                             cand.a, cand.b, seeds, topk=5)
+    S, (B, N), T = 2, cand.doc_ids.shape, q.shape[1]
+    step = make_streaming_step(topk=5, trip_limit=3)
+    state = init_stream_state(S, N, T, device=card)
+    queue, slot_q, got = list(range(2, B)), [0, 1], {}
+    fresh = torch.ones(S, dtype=torch.bool, device=card)
+    _build.reset_launches()
+    while len(got) < B:
+        ix = torch.tensor(slot_q, device=card)
+        _, ids, frac, _, harvest, state = step(
+            corpus.embs, corpus.mask, q[ix], cand.doc_ids[ix], cand.a[ix],
+            cand.b[ix], state, fresh, seeds[ix])
+        fresh = torch.zeros(S, dtype=torch.bool, device=card)
+        for s in range(S):
+            if bool(harvest[s]) and slot_q[s] not in got:
+                got[slot_q[s]] = (ids[s], frac[s])
+                if queue:
+                    slot_q[s] = queue.pop(0)
+                    fresh[s] = True
+    assert _build.LAUNCHES[kernel] > 0
+    for b, (ids, frac) in got.items():
+        assert torch.equal(ids, one[1][b]) and torch.equal(frac, one[2][b])
+
+
+def test_knobs_on_the_card(card):
+    corpus, q, cand, seeds = _stream_case(card, "bf16")
+    args = (corpus.embs, corpus.mask, q, cand.doc_ids, cand.a, cand.b, seeds)
+    base = rerank_bandit_step(*args, topk=5)
+    one = rerank_bandit_step(*args, topk=5,
+                             alpha_scale=torch.tensor(1.0, device=card),
+                             round_cap=torch.tensor(0, device=card))
+    for g, w in zip(one, base):
+        assert torch.equal(g, w)
+    # seeds made on the CPU (TorchDraws.keys' default) move to the card
+    for g, w in zip(rerank_bandit_step(*args[:-1], seeds.cpu(), topk=5),
+                    base):
+        assert torch.equal(g, w)
+    capped = rerank_bandit_step(*args, topk=5, alpha_scale=8.0,
+                                round_cap=torch.tensor(4, device=card))
+    assert float(capped[2].mean()) <= float(base[2].mean())
+    lock = rerank_bandit_step(*args, topk=5, engine="vmapped")
+    assert torch.isfinite(lock[0]).all() and lock[1].shape == (6, 5)
+
+
+def test_rerank_query_on_the_card_runs_the_dense_kernel(card):
+    ds = make_retrieval_dataset(n_docs=256, n_queries=2, doc_len=32,
+                                min_doc_len=8, query_len=16, dim=64, seed=9)
+    idx = from_numpy(ds.doc_embs, ds.doc_mask, ds.doc_lens, device=card)
+    _build.reset_launches()
+    res = rerank_query(idx, ds.queries[0], method="exact", use_kernel=True,
+                       max_candidates=64)
+    assert _build.LAUNCHES["maxsim"] == 1
+    assert res.overlap == 1.0 and res.coverage == 1.0
+    bandit = rerank_query(idx, ds.queries[0], method="bandit",
+                          use_kernel=True, max_candidates=64)
+    assert bandit.coverage < 1.0 and bandit.flops < bandit.flops_exact

@@ -27,14 +27,16 @@ from repro.retrieval.index import build_index as j_build_index
 from repro.retrieval.pipeline import serve_queries as j_serve
 from repro_torch.configs import colbert_repro as tcolbert
 from repro_torch.configs.base import BanditConfig
+from repro_torch.core.draws import TorchDraws
+from repro_torch.core.frontier import init_frontier_state
 from repro_torch.core.metrics import overlap_at_k
 from repro_torch.retrieval.ann import generate_candidates, generic_bounds
 from repro_torch.retrieval.index import from_arrays, from_numpy, \
     gather_tokens
 from repro_torch.retrieval.pipeline import candidates_for, serve_queries
-from repro_torch.retrieval.service import make_serving_step, \
-    rerank_bandit_step, rerank_dense_step
-from test_torch_core import JaxReplayDraws
+from repro_torch.retrieval.service import init_stream_state, \
+    make_serving_step, rerank_bandit_step, rerank_dense_step
+from test_torch_core import JaxReplayDraws, key_data
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -156,9 +158,8 @@ def _port_serve(seed, name, engine=None):
     kw = dict(CALLS[name])
     if engine:
         kw["engine"] = engine
-    keys = jax.random.split(jax.random.key(seed), ds.queries.shape[0])
     return serve_queries(idx, ds.queries, seed=seed, device="cpu",
-                         bandit=BanditConfig(k=5), draws=JaxReplayDraws(keys),
+                         bandit=BanditConfig(k=5), draws=JaxReplayDraws(),
                          **SERVE, **kw)
 
 
@@ -190,10 +191,10 @@ def test_make_serving_step_is_the_rerank_steps():
     cand = candidates_for(idx.doc_embs, idx.doc_mask, q, kprime=10,
                           max_candidates=32, support=(0.0, 1.0))
     args = (idx.doc_embs, idx.doc_mask, q, cand.doc_ids, cand.a, cand.b)
-    keys = jax.random.split(jax.random.key(2), q.shape[0])
-    got = make_serving_step("bandit", topk=5, engine="pooled_chain")(
-        *args, JaxReplayDraws(keys))
-    want = rerank_bandit_step(*args, JaxReplayDraws(keys), topk=5,
+    seeds = key_data(jax.random.split(jax.random.key(2), q.shape[0]))
+    got = make_serving_step("bandit", topk=5, engine="pooled_chain",
+                            draws=JaxReplayDraws())(*args, seeds)
+    want = rerank_bandit_step(*args, seeds, draws=JaxReplayDraws(), topk=5,
                               engine="pooled_chain")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -203,7 +204,7 @@ def test_make_serving_step_is_the_rerank_steps():
     with pytest.raises(ValueError, match="unknown serving flavor"):
         make_serving_step("sparse")
     with pytest.raises(ValueError, match="unknown reveal engine"):
-        make_serving_step("bandit", engine="vmapped")
+        make_serving_step("bandit", engine="lockstep")
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
@@ -217,7 +218,16 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
             serve_queries(idx, ds.queries)
         with pytest.raises((RuntimeError, AssertionError)):
             from_numpy(ds.doc_embs, ds.doc_mask, ds.doc_lens)
+    # Seeds and empty stream states are made on the card by default.
+    for make in (lambda: TorchDraws().key(0), lambda: TorchDraws().keys(0, 2),
+                 lambda: init_frontier_state(2, 4, 3).draw,
+                 lambda: init_stream_state(2, 4, 3).rounds):
+        if torch.cuda.is_available():
+            assert make().is_cuda
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                make()
     with pytest.raises(ValueError, match="unknown serving flavor"):
         serve_queries(idx, ds.queries, flavor="sparse", device="cpu")
     with pytest.raises(ValueError, match="unknown reveal engine"):
-        serve_queries(idx, ds.queries, engine="vmapped", device="cpu")
+        serve_queries(idx, ds.queries, engine="lockstep", device="cpu")
