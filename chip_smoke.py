@@ -46,7 +46,13 @@ Phases, in order:
      bandit (with and without ``prereveal_ann``), batched, uniform and
      topmargin over the first HARNESS_QUERIES queries; each H the
      ``maxsim`` kernel computed is held to ``maxsim_plain``, and each
-     query's top-K ids and coverage to a second run with the plain H.
+     query's top-K ids and coverage to a second run with the plain H;
+  9. serving engine: ``RetrievalEngine`` (f32 and int8),
+     ``AsyncRetrievalEngine`` batch and continuous mode and a supervised
+     dispatch kill, on phase 4's corpus, queries and stage-1 candidates,
+     each completion held to the serving steps bit for bit, with
+     requests/s, latency p50/p99 and a profile of each mode (see
+     ``serving_engine``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -168,6 +174,319 @@ def corpus_like(gen, D, L, M, dtype, min_len, dead=()):
     for d in dead:
         mask[d] = False
     return e.to(dtype).contiguous(), mask.contiguous()
+
+
+def serving_engine(dev, index, ds, cand, records, profiled_line, smi, t_start):
+    """9. The serving engine on phase 4's corpus, queries and stage-1
+    candidates, at the text config's widths (T = 32, L = M = 128), with
+    ``EngineConfig(batch_size=16, token_buckets=(32,), cand_buckets=(64,
+    256), flavor="auto", bandit_min_candidates=256, stage1_candidates=256,
+    stage1_kprime=10, seed=0)``, ``max_k=K`` as phase 4's bandit, and a
+    30 s admission window so that only full batches release and the sync
+    and async engines batch alike. 48 requests: each query with its 256
+    stage-1 candidates (bandit), with their first 64 (dense), and
+    candidate-less (engine stage 1).
+
+    (a) sync ``RetrievalEngine`` on the f32 corpus (48 requests) and an
+        int8 one (the 32 candidate-carrying requests): warmed buckets only,
+        every completion equal to the serving step on the same padded
+        inputs with the engine's batch seeds bit for bit, engine stage 1
+        equal to phase 4's ``candidates_for``, and the engine's launches
+        equal to the steps' alone;
+    (b) ``AsyncRetrievalEngine`` batch mode (pipeline depth 2) on the same
+        stream: every completion equal to (a)'s bit for bit;
+    (c) continuous mode on f32 (48 requests) and int8 (32): every rid
+        equal to the one-shot bandit step on its slot seed
+        ``fold_in(key(0), rid)`` in batches of 16 rows (the stream's slot
+        count, so reductions see the same shapes);
+    (d) supervision: a dispatch thread killed once and restarted (zero
+        lost, zero duplicated, completions equal to (b)'s), and an
+        unsupervised kill that ``drain()`` raises.
+
+    Returns the kernels' launches in the served runs (not the checks)."""
+    import collections
+
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.kernels import _build
+    from repro_torch.retrieval.service import make_serving_step
+    from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig,
+                                   FaultPlan, InjectedFault, Request,
+                                   RetrievalEngine, pad_candidates,
+                                   support_bounds)
+
+    nq, T, _ = ds.queries.shape
+    cfg = EngineConfig(batch_size=nq, deadline_s=30.0, token_buckets=(T,),
+                       cand_buckets=(64, MAX_CANDIDATES), max_k=K,
+                       flavor="auto", bandit_min_candidates=MAX_CANDIDATES,
+                       stage1_candidates=MAX_CANDIDATES, stage1_kprime=10,
+                       seed=SEED)
+    ids = [r[r >= 0] for r in cand.doc_ids.cpu().numpy()]
+    requests = ([Request(query=ds.queries[i], k=K, cand_ids=ids[i])
+                 for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K, cand_ids=ids[i][:64])
+                   for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K) for i in range(nq)])
+    served = collections.Counter()
+    draws = TorchDraws()
+    base = draws.key(SEED, dev)
+    queries = torch.as_tensor(ds.queries, device=dev)
+
+    def sync_dev():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(eng, reqs, started, tally=True):
+        """Serve ``reqs`` through a warmed engine; completions by rid,
+        seconds, and the launches of the run (added to the phase's count
+        unless ``tally`` is False)."""
+        _build.reset_launches()
+        sync_dev()
+        t = time.perf_counter()
+        if started:
+            with eng:
+                for r in reqs:
+                    eng.submit(r)
+                done = eng.drain()
+        else:
+            for r in reqs:
+                eng.submit(r)
+            done = eng.drain()
+        sync_dev()
+        secs = time.perf_counter() - t
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if tally:
+            served.update(counts)
+        got = {c.rid: c for c in done}
+        if not len(got) == len(done) == len(reqs):
+            fail(f"phase 9: {len(done)} completions, {len(got)} rids for "
+                 f"{len(reqs)} requests")
+        if eng.metrics.compiles_after_warmup:
+            fail(f"phase 9: {eng.metrics.compiles_after_warmup} builds "
+                 "after warmup")
+        return got, secs, counts
+
+    def line(label, eng, got, secs, counts):
+        s = eng.metrics.summary()
+        frac = np.mean([c.reveal_fraction for c in got.values()])
+        print(f"phase 9 {label}: {len(got)} requests in {secs * 1e3:.1f} ms "
+              f"= {len(got) / secs:.1f} requests/s; latency p50 "
+              f"{s['latency_p50_ms']:.1f} ms, p99 {s['latency_p99_ms']:.1f} "
+              f"ms; mean reveal fraction {frac:.4f} per request, "
+              f"{s['mean_reveal_fraction']:.4f} per batch or slice "
+              f"({s['n_batches']}); "
+              f"compiles_after_warmup {s['compiles_after_warmup']}; "
+              f"launches {counts}; {smi}", flush=True)
+        return s
+
+    def same(got, want, label):
+        bad = [r for r in want if not (
+            np.array_equal(got[r].topk_ids, want[r].topk_ids)
+            and np.array_equal(got[r].topk_scores, want[r].topk_scores)
+            and got[r].reveal_fraction == want[r].reveal_fraction)]
+        if sorted(got) != sorted(want) or bad:
+            fail(f"phase 9 {label}: rids {bad} differ")
+
+    def padded(reqs, nb):
+        """The engine's (16, nb) inputs of candidate-carrying requests."""
+        c = pad_candidates([r.cand_ids for r in reqs], nb)
+        a, b = support_bounds(c, [T] * len(reqs), T, cfg.support)
+        return tuple(torch.as_tensor(x, device=dev) for x in (c, a, b))
+
+    # (a) sync engine == steps --------------------------------------------
+    sync = {}
+    for fmt, reqs in (("f32", requests), ("int8", requests[:2 * nq])):
+        t = time.perf_counter()
+        eng = RetrievalEngine(index.doc_embs, index.doc_mask,
+                              dataclasses.replace(cfg, corpus_format=(
+                                  "bf16" if fmt == "f32" else fmt)),
+                              device=dev)
+        warm = eng.warmup()
+        sync_dev()
+        print(f"phase 9a {fmt}: engine built and warmed in "
+              f"{time.perf_counter() - t:.1f} s, buckets {warm} "
+              f"(builds {dict(eng.metrics.compiles)})", flush=True)
+        got, secs, counts = run(eng, reqs, started=False)
+        s = line(f"(a) sync {fmt}", eng, got, secs, counts)
+        _build.reset_launches()
+        for ordinal in range(len(reqs) // nq):
+            batch = reqs[ordinal * nq:(ordinal + 1) * nq]
+            if batch[0].cand_ids is None:
+                s1 = eng._stage1(T, ds.queries)
+                if not all(np.array_equal(x, y.cpu().numpy()) for x, y in
+                           zip(s1, (cand.doc_ids, cand.a, cand.b))):
+                    fail("phase 9a: engine stage 1 differs from "
+                         "candidates_for")
+                args = (cand.doc_ids, cand.a, cand.b)
+            else:
+                args = padded(batch, eng.buckets.cand_bucket(
+                    max(len(r.cand_ids) for r in batch)))
+            flavor = eng.flavor_for(args[0].shape[1])
+            seeds = draws.split(draws.fold_in(base, ordinal), nq)
+            want = make_serving_step(flavor, topk=K)(
+                eng.corpus_embs, eng.corpus_mask, queries, *args, seeds,
+                alpha_scale=1.0, round_cap=0)
+            scores, gids, frac, _ = (x.cpu().numpy() for x in want)
+            for i in range(nq):
+                c = got[ordinal * nq + i]
+                if not (c.flavor == flavor
+                        and np.array_equal(c.topk_ids, gids[i])
+                        and np.array_equal(c.topk_scores, scores[i])
+                        and c.reveal_fraction == float(frac[i])):
+                    fail(f"phase 9a {fmt}: rid {c.rid} differs from "
+                         f"make_serving_step({flavor!r})")
+        steps = {k: v for k, v in _build.LAUNCHES.items() if v}
+        q_ = "_q" if fmt == "int8" else ""
+        if counts != steps or not (counts.get("fused_reveal" + q_)
+                                   and counts.get("maxsim" + q_)):
+            fail(f"phase 9a {fmt}: engine launches {counts}, steps alone "
+                 f"{steps}")
+        print(f"phase 9a {fmt}: every completion == make_serving_step on "
+              "the same padded inputs and batch seeds, bit for bit"
+              + ("; engine stage 1 == candidates_for" if fmt == "f32"
+                 else "") + f"; launches == the steps' alone {steps}",
+              flush=True)
+        sync[fmt] = (eng, got, secs, s)
+    eng_a, got_a, secs_a, _ = sync["f32"]
+    print(profiled_line("phase 9a sync f32", lambda: run(
+        eng_a, requests, False, tally=False), secs_a * 1e3), flush=True)
+
+    # (b) async batch mode == sync ----------------------------------------
+    eng_b = AsyncRetrievalEngine(index.doc_embs, index.doc_mask,
+                                 dataclasses.replace(cfg, pipeline_depth=2),
+                                 device=dev)
+    eng_b.warmup()
+    got_b, secs_b, counts = run(eng_b, requests, started=True)
+    line("(b) async batch, pipeline_depth 2", eng_b, got_b, secs_b, counts)
+    same(got_b, got_a, "(b) async")
+    print(f"phase 9b: every completion == (a)'s bit for bit; requests/s "
+          f"async / sync {secs_a / secs_b:.3f}", flush=True)
+    print(profiled_line("phase 9b async", lambda: run(
+        eng_b, requests, True, tally=False), secs_b * 1e3), flush=True)
+
+    # (c) continuous mode == one-shot per rid -------------------------------
+    def stream_rows(reqs, nb):
+        """The stream's (len(reqs), nb) inputs: stage-1 requests take
+        phase 4's candidate rows (their query's), the others are padded."""
+        rows = []
+        for i, r in enumerate(reqs):
+            if r.cand_ids is None:
+                qi = int(np.flatnonzero([x is r for x in requests])[0]) % nq
+                rows.append((cand.doc_ids[qi], cand.a[qi], cand.b[qi]))
+            else:
+                rows.append(tuple(x[0] for x in padded([r], nb)))
+        return [torch.stack(x) for x in zip(*rows)]
+
+    for fmt, reqs in (("f32", requests), ("int8", requests[:2 * nq])):
+        eng = AsyncRetrievalEngine(
+            index.doc_embs, index.doc_mask, dataclasses.replace(
+                cfg, continuous=True,
+                corpus_format="bf16" if fmt == "f32" else fmt), device=dev)
+        eng.warmup()
+        got, secs, counts = run(eng, reqs, started=True)
+        line(f"(c) continuous {fmt}, {nq} slots, trip_limit "
+             f"{cfg.stream_trip_limit}", eng, got, secs, counts)
+        q_ = "_q" if fmt == "int8" else ""
+        if not counts.get("fused_reveal" + q_):
+            fail(f"phase 9c {fmt}: launches {counts}")
+        nb = eng._stream_bucket[1]
+        bad = []
+        for g0 in range(0, len(reqs), nq):      # rid = position in reqs
+            group = reqs[g0:g0 + nq]
+            seeds = torch.stack([draws.fold_in(base, g0 + j)
+                                 for j in range(len(group))])
+            one = make_serving_step("bandit", topk=K)(
+                eng.corpus_embs, eng.corpus_mask,
+                queries[[(g0 + j) % nq for j in range(len(group))]],
+                *stream_rows(group, nb), seeds)
+            _, gids, frac, _ = (x.cpu().numpy() for x in one)
+            bad += [g0 + j for j in range(len(group)) if not (
+                np.array_equal(got[g0 + j].topk_ids, gids[j])
+                and got[g0 + j].reveal_fraction == float(frac[j]))]
+        if bad:
+            fail(f"phase 9c {fmt}: rids {bad} differ from the one-shot "
+                 "bandit step on their slot seeds")
+        print(f"phase 9c {fmt}: every rid == one-shot make_serving_step("
+              "'bandit') on seed fold_in(key(0), rid) (ids, reveal "
+              f"fraction); requests/s continuous / sync "
+              f"{sync[fmt][2] / secs:.3f}", flush=True)
+        if fmt == "f32":
+            eng_c = eng
+            print(profiled_line("phase 9c continuous f32", lambda: run(
+                eng, reqs, True, tally=False), secs * 1e3), flush=True)
+
+    # The three modes' wall times again, in turns (host-bound runs spread).
+    walls = {"sync": [], "async": [], "continuous": []}
+    modes = {"sync": (eng_a, False), "async": (eng_b, True),
+             "continuous": (eng_c, True)}
+    for mode in ("sync", "async", "continuous", "continuous", "async",
+                 "sync"):
+        eng, started = modes[mode]
+        walls[mode].append(run(eng, requests, started, tally=False)[1])
+    med = {m: statistics.median(w) for m, w in walls.items()}
+    n = len(requests)
+    print("phase 9 in turns (sync, async, continuous, continuous, async, "
+          f"sync), ms for {len(requests)} requests: " + "; ".join(
+              f"{m} {[round(x * 1e3, 1) for x in w]}"
+              for m, w in walls.items())
+          + f"; requests/s by median: sync {n / med['sync']:.1f}, async "
+          f"{n / med['async']:.1f} ({med['sync'] / med['async']:.3f}x), "
+          f"continuous {n / med['continuous']:.1f} "
+          f"({med['sync'] / med['continuous']:.3f}x); {smi}", flush=True)
+
+    # (d) supervision -------------------------------------------------------
+    plan = FaultPlan([InjectedFault("dispatch", 2, "kill")])
+    eng = AsyncRetrievalEngine(index.doc_embs, index.doc_mask,
+                               dataclasses.replace(cfg, supervise=True),
+                               device=dev, fault_plan=plan)
+    eng.warmup()
+    _build.reset_launches()
+    for r in requests:                 # queued before the threads start
+        eng.submit(r)
+    t = time.perf_counter()
+    eng.start()
+    done = eng.drain()
+    eng.stop()
+    secs = time.perf_counter() - t
+    served.update({k: v for k, v in _build.LAUNCHES.items() if v})
+    rids = [c.rid for c in done]
+    s = eng.metrics.summary()
+    lost = len(set(range(len(requests))) - set(rids))
+    dup = len(rids) - len(set(rids))
+    print(f"phase 9d supervised: dispatch killed at tick 2 "
+          f"(fired {[f.action for f in plan.fired]}); restarts "
+          f"{s['thread_restarts']}; {len(done)} completions in "
+          f"{secs * 1e3:.1f} ms; lost {lost}, duplicated {dup}, errors "
+          f"{s['errors']}", flush=True)
+    if (lost or dup or s["errors"]
+            or s["thread_restarts"] != {"repro-dispatch": 1}
+            or [f.action for f in plan.fired] != ["kill"]):
+        fail("phase 9d: the supervised kill lost, duplicated or failed "
+             "requests, or did not restart once")
+    same({c.rid: c for c in done}, got_b, "(d) supervised")
+    eng = AsyncRetrievalEngine(
+        index.doc_embs, index.doc_mask, cfg, device=dev,
+        fault_plan=FaultPlan([InjectedFault("dispatch", 1, "kill")]))
+    eng.warmup()
+    for r in requests[:nq]:
+        eng.submit(r)
+    eng.start()
+    try:
+        eng.drain()
+        fail("phase 9d: an unsupervised kill did not make drain() raise")
+    except RuntimeError as e:
+        if "serving thread died" not in str(e):
+            raise
+    eng.stop()
+    flushed = eng.poll()
+    if sorted(c.rid for c in flushed) != list(range(nq)) or any(
+            c.error for c in flushed):
+        fail("phase 9d: stop() after an unsupervised kill did not serve "
+             "every request")
+    print(f"phase 9d unsupervised: drain() raised 'serving thread died'; "
+          f"stop() served all {nq} queued requests; (d) supervised == (b) "
+          "bit for bit", flush=True)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    return served
 
 
 def main() -> int:
@@ -1366,6 +1685,14 @@ def main() -> int:
              "below 1")
     print(f"phase 8: max |H kernel - H plain| over every query and method "
           f"{err8:.3g}", flush=True)
+
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 9. serving engine --------------------------------------------------------
+    served = serving_engine(torch.device("cuda"), index, ds, cand, records,
+                            profiled_line, smi, t_start)
+    print(f"phase 9: launches in the served runs {dict(served)}", flush=True)
+    for kname, n in served.items():
+        records[kname]["launches"] += n
     print(f"elapsed {time.perf_counter() - t_start:.1f} s (end)", flush=True)
 
     order = ("fused_reveal", "maxsim", "gather_maxsim", "fused_reveal_q",

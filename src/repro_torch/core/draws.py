@@ -34,26 +34,36 @@ _M32 = 0xFFFFFFFF
 # 2**63 and int64 arithmetic never overflows.
 _C1, _C2, _WEYL = 0x7FEB352D, 0x2C1B3C6D, 0x61C88647
 # Stream tags: independent draws of one seed.
-_ROUND, _INIT, _WARM, _UNIFORM, _SPLIT_HI, _SPLIT_LO = (
-    0x52, 0x17, 0x2B, 0x3D, 0x4E, 0x61)
+_ROUND, _INIT, _WARM, _UNIFORM, _SPLIT_HI, _SPLIT_LO, _FOLD_HI, _FOLD_LO = (
+    0x52, 0x17, 0x2B, 0x3D, 0x4E, 0x61, 0x73, 0x7C)
 
 
 class DrawSource(Protocol):
     """The random draws of the bandit engines, as functions of tensors.
 
     ``seeds`` are a source's per-slot seeds (``key``/``keys`` make them
-    from an int, as ``jax.random.key``/``split`` do); draw states are
-    (Q, DRAW_WIDTH) int64 tensors. The pooled and block bandits use
-    ``init`` and ``round`` (JAX's ``split(key)`` then, every round,
-    ``split(key, 3)`` into a uniform and a Gumbel draw); Algorithm 1 uses
-    ``init_alg1`` (JAX's ``split(key, 3)``) and ``round`` with W = 1; the
-    Doc-Uniform baseline uses ``uniform``."""
+    from an int, as ``jax.random.key``/``split`` do; ``fold_in`` and
+    ``split`` derive seeds from a seed, as ``jax.random.fold_in``/``split``
+    do, which is how the serving engine makes a batch's and a stream
+    slot's seeds); draw states are (Q, DRAW_WIDTH) int64 tensors. The
+    pooled and block bandits use ``init`` and ``round`` (JAX's
+    ``split(key)`` then, every round, ``split(key, 3)`` into a uniform and
+    a Gumbel draw); Algorithm 1 uses ``init_alg1`` (JAX's ``split(key,
+    3)``) and ``round`` with W = 1; the Doc-Uniform baseline uses
+    ``uniform``."""
 
     def key(self, seed: int, device="cuda") -> torch.Tensor:
         """One slot's seed for the int ``seed``."""
 
     def keys(self, seed: int, n: int, device="cuda") -> torch.Tensor:
         """``n`` per-query seeds derived from the int ``seed``."""
+
+    def fold_in(self, seed: torch.Tensor, data: int) -> torch.Tensor:
+        """One seed derived from ``seed`` and the integer ``data`` in
+        [0, 2**32), on ``seed``'s device."""
+
+    def split(self, seed: torch.Tensor, n: int) -> torch.Tensor:
+        """``n`` seeds derived from one ``seed``, on its device."""
 
     def init(self, seeds: torch.Tensor, fresh: Optional[torch.Tensor],
              state: Optional[torch.Tensor], N: int, T: int
@@ -130,7 +140,17 @@ class TorchDraws:
         return torch.tensor(int(seed), dtype=torch.int64, device=device)
 
     def keys(self, seed: int, n: int, device="cuda") -> torch.Tensor:
-        s = self.key(seed, device)[None]
+        return self.split(self.key(seed, device), n)
+
+    def fold_in(self, seed, data):
+        s = seed.reshape(1)
+        d = int(data) & _M32
+        hi = _mix(_seed_key(s, _FOLD_HI) ^ d)
+        lo = _mix(_seed_key(s, _FOLD_LO) ^ d)
+        return ((hi << 31) | (lo >> 1))[0]     # in [0, 2**63)
+
+    def split(self, seed, n):
+        s = seed.reshape(1)
         hi = _bits(_seed_key(s, _SPLIT_HI), n)[0]
         lo = _bits(_seed_key(s, _SPLIT_LO), n)[0]
         return (hi << 31) | (lo >> 1)          # in [0, 2**63)

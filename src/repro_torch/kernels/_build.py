@@ -10,7 +10,10 @@ into place atomically, so concurrent processes never load a partial file.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; callers
 reset it with :func:`reset_launches` to show that a run went through the
-kernels.
+kernels. Both the library cache and the counts are shared by every thread
+of the process (the async serving engine launches from its own threads),
+so each is changed under a lock: concurrent first uses build and load a
+library once, and no launch goes uncounted.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -75,11 +79,15 @@ LAUNCHES: Dict[str, int] = {"maxsim": 0, "fused_reveal": 0,
 # Loaded libraries by source name, and the nvcc report of the last build.
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
+# Guards _LIBS (build, load and register a library once) and LAUNCHES.
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -134,14 +142,18 @@ def build(sources: Optional[List[str]] = None) -> float:
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
     lib = _LIBS.get(source)
-    if lib is None:
-        build([source])
-        lib = ctypes.CDLL(str(_lib_path(source)))
-        for name, argtypes, *restype in _ENTRY_POINTS[source]:
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype[0] if restype else ctypes.c_int
-        _LIBS[source] = lib
+    if lib is not None:
+        return lib
+    with _LIB_LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(str(_lib_path(source)))
+            for name, argtypes, *restype in _ENTRY_POINTS[source]:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype[0] if restype else ctypes.c_int
+            _LIBS[source] = lib
     return lib
 
 
@@ -151,7 +163,8 @@ def check_launch(status: int, kernel: str) -> None:
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error "
                            f"{status}")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def require_cuda(kernel: str, *tensors: torch.Tensor) -> torch.device:

@@ -1,5 +1,19 @@
-"""Graceful fidelity degradation (port of the ``DegradeLadder`` of
-``repro.serve.resilience``; ``Supervisor`` waits for the serving engine).
+"""Self-healing serving: thread supervision and graceful fidelity
+degradation (port of ``repro.serve.resilience``).
+
+* :class:`Supervisor` - a watchdog thread that notices dead pipeline
+  threads of ``serve.engine.AsyncRetrievalEngine`` (killed by a fault, a
+  chaos plan or a real bug), restarts them up to a budget, and escalates
+  to a loud engine-wide failure when the budget is spent. Restarting is
+  safe because the engine keeps every piece of in-flight state on the
+  engine object, not on thread stacks, and delivers completions
+  idempotently (rid-deduplicated).
+* :class:`DegradeLadder` - the deadline-aware fidelity policy behind
+  ``EngineConfig(backpressure="degrade")``.
+
+The fault-injection primitives (``FaultPlan``, ``ChaosClock``,
+``poison_corpus``, ...) live in :mod:`repro_torch.dist.fault` and are
+re-exported here.
 
 When a batch's tightest deadline headroom shrinks below the configured
 thresholds, a serving engine moves down the ladder's rungs:
@@ -22,9 +36,14 @@ knob-less call.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import threading
+from typing import Callable, Dict, Optional, Tuple
 
-__all__ = ["DegradeLadder"]
+from repro_torch.dist.fault import (ChaosClock, ChaosKill, FaultPlan,
+                                    InjectedFault, poison_corpus)
+
+__all__ = ["ChaosClock", "ChaosKill", "DegradeLadder", "FaultPlan",
+           "InjectedFault", "Supervisor", "poison_corpus"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,3 +92,96 @@ class DegradeLadder:
             return 1.0, 0
         i = min(level, len(self.headrooms)) - 1
         return float(self.alpha_scales[i]), int(self.round_caps[i])
+
+
+class Supervisor:
+    """Restart-with-budget watchdog over named pipeline threads.
+
+    The engine registers each serving thread with a factory that builds a
+    STARTED replacement; the watchdog polls thread liveness every
+    ``interval_s`` and, when a thread is dead while the engine is not
+    stopping, either restarts it (budget remaining) or calls
+    ``on_exhausted(name, last_exc)`` exactly once and stops watching.
+
+    ``note_failure`` records the exception a dying thread saw so the
+    escalation path can chain it. All mutation happens under one lock;
+    the watchdog itself is a daemon thread and is joined on ``stop()``.
+    """
+
+    def __init__(self, *, max_restarts: int = 2, interval_s: float = 0.02,
+                 stopping: Callable[[], bool] = lambda: False,
+                 on_exhausted: Optional[
+                     Callable[[str, Optional[BaseException]], None]] = None):
+        if max_restarts < 0:
+            raise ValueError("max_restarts must be >= 0")
+        self._max_restarts = int(max_restarts)
+        self._interval = float(interval_s)
+        self._stopping = stopping
+        self._on_exhausted = on_exhausted
+        self._lock = threading.Lock()
+        self._threads: Dict[str, threading.Thread] = {}
+        self._factories: Dict[str, Callable[[], threading.Thread]] = {}
+        self._on_restart: Dict[str, Optional[Callable[[], None]]] = {}
+        self._last_exc: Dict[str, BaseException] = {}
+        self._gave_up: set = set()
+        self.restarts: Dict[str, int] = {}
+        self._stop_evt = threading.Event()
+        self._watchdog: Optional[threading.Thread] = None
+
+    def watch(self, name: str, thread: threading.Thread,
+              factory: Callable[[], threading.Thread],
+              on_restart: Optional[Callable[[], None]] = None) -> None:
+        with self._lock:
+            self._threads[name] = thread
+            self._factories[name] = factory
+            self._on_restart[name] = on_restart
+            self.restarts.setdefault(name, 0)
+
+    def note_failure(self, name: str, exc: BaseException) -> None:
+        """Called by a dying thread's guard so escalation can chain the
+        original exception instead of reporting a bare dead thread."""
+        with self._lock:
+            self._last_exc[name] = exc
+
+    def start(self) -> "Supervisor":
+        if self._watchdog is not None:
+            return self
+        self._stop_evt.clear()
+        self._watchdog = threading.Thread(
+            target=self._loop, name="repro-supervisor", daemon=True)
+        self._watchdog.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        w, self._watchdog = self._watchdog, None
+        if w is not None:
+            w.join(timeout=10.0)
+
+    def _loop(self) -> None:
+        while not self._stop_evt.wait(self._interval):
+            if self._stopping():
+                continue            # normal shutdown: dead threads are fine
+            with self._lock:
+                dead = [(n, t) for n, t in self._threads.items()
+                        if not t.is_alive() and n not in self._gave_up]
+            for name, _ in dead:
+                if self._stopping() or self._stop_evt.is_set():
+                    return
+                with self._lock:
+                    exhausted = self.restarts[name] >= self._max_restarts
+                    if not exhausted:
+                        self.restarts[name] += 1
+                    exc = self._last_exc.get(name)
+                if exhausted:
+                    with self._lock:
+                        self._gave_up.add(name)
+                    if self._on_exhausted is not None:
+                        self._on_exhausted(name, exc)
+                    continue
+                cb = self._on_restart.get(name)
+                if cb is not None:
+                    cb()
+                fresh = self._factories[name]()
+                with self._lock:
+                    self._threads[name] = fresh

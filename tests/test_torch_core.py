@@ -62,13 +62,22 @@ class JaxReplayDraws:
     reveal, masked to fresh slots as ``where(fresh, split(keys)[0],
     carry.key)``; every trip ``state, k_eps, k_tok = split(state, 3)`` with
     ``uniform(k_eps, (W, 1))`` and ``gumbel(k_tok, (W, T))``; Algorithm 1's
-    ``split(key, 3)`` start; ``uniform(key, shape)`` for Doc-Uniform."""
+    ``split(key, 3)`` start; ``uniform(key, shape)`` for Doc-Uniform;
+    ``fold_in`` / ``split`` of one key for the serving engine's batch and
+    stream-slot keys."""
 
     def key(self, seed, device="cuda"):
         return key_data(jax.random.key(seed)).to(device)
 
     def keys(self, seed, n, device="cuda"):
         return key_data(jax.random.split(jax.random.key(seed), n)).to(device)
+
+    def fold_in(self, seed, data):
+        return key_data(jax.random.fold_in(_wrap(seed), data)).to(
+            seed.device)
+
+    def split(self, seed, n):
+        return key_data(jax.random.split(_wrap(seed), n)).to(seed.device)
 
     def init(self, seeds, fresh, state, N, T):
         new, t0 = _jax_init(_wrap(seeds), N, T)

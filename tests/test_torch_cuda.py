@@ -22,6 +22,8 @@ every cell (3 for the row coded Kc - 1), so a different summation order
 moves a cell by about 1e-8, far inside atol, whatever the seed, while a
 wrong term moves it by ~1/M.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,10 @@ from repro_torch.retrieval.pipeline import candidates_for, \
     rerank_query, serve_queries
 from repro_torch.retrieval.service import init_stream_state, \
     make_serving_step, make_streaming_step, rerank_bandit_step
+from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig,
+                               FaultPlan, InjectedFault, Request,
+                               RetrievalEngine, pad_candidates,
+                               support_bounds)
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -632,3 +638,104 @@ def test_rerank_query_on_the_card_runs_the_dense_kernel(card):
     bandit = rerank_query(idx, ds.queries[0], method="bandit",
                           use_kernel=True, max_candidates=64)
     assert bandit.coverage < 1.0 and bandit.flops < bandit.flops_exact
+
+
+# ---------------------------------------------------------------------------
+# the serving engine on the card
+# ---------------------------------------------------------------------------
+
+def _engine_case(card, fmt):
+    """A 256-doc corpus, 8 requests a batch of 4: 32 stage-1 candidates
+    (bandit bucket) and their first 16 (dense bucket), plus stage-1
+    requests on a float corpus."""
+    corpus, q, cand, _ = _stream_case(card, fmt)
+    ds = make_retrieval_dataset(n_docs=256, n_queries=6, doc_len=32,
+                                min_doc_len=8, query_len=16, dim=64, seed=8)
+    cfg = EngineConfig(batch_size=4, deadline_s=30.0, token_buckets=(16,),
+                       cand_buckets=(16, 32), max_k=5, flavor="auto",
+                       bandit_min_candidates=32, stage1_candidates=32,
+                       stage1_kprime=10, corpus_format=fmt)
+    ids = [r[r >= 0].cpu().numpy()[:32] for r in cand.doc_ids]
+    reqs = [Request(query=ds.queries[i], k=5, cand_ids=ids[i])
+            for i in range(4)]
+    reqs += [Request(query=ds.queries[i], k=5, cand_ids=ids[i][:16])
+             for i in range(4)]
+    if fmt == "bf16":
+        reqs += [Request(query=ds.queries[i], k=5) for i in range(4)]
+    return ds, cfg, reqs, corpus, q
+
+
+def _serve(eng, reqs, started=False):
+    eng.warmup()
+    if started:
+        with eng:
+            for r in reqs:
+                eng.submit(r)
+            return {c.rid: c for c in eng.drain()}
+    for r in reqs:
+        eng.submit(r)
+    return {c.rid: c for c in eng.drain()}
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_engine_on_the_card_equals_the_steps(card, fmt):
+    """The sync engine's completions equal the serving steps called on the
+    same padded inputs with the engine's batch seeds, bit for bit; the
+    engine builds nothing after warmup and launches as the steps do."""
+    ds, cfg, reqs, corpus, q = _engine_case(card, fmt)
+    eng = RetrievalEngine(ds.doc_embs, ds.doc_mask, cfg, device=card)
+    eng.warmup()
+    _build.reset_launches()
+    for r in reqs:
+        eng.submit(r)
+    got = {c.rid: c for c in eng.drain()}
+    served = dict(_build.LAUNCHES)
+    assert eng.metrics.compiles_after_warmup == 0
+    draws, base = TorchDraws(), TorchDraws().key(0, card)
+    _build.reset_launches()
+    for ordinal in range(len(reqs) // 4):
+        batch = reqs[4 * ordinal:4 * ordinal + 4]
+        if batch[0].cand_ids is None:
+            c1 = candidates_for(eng.corpus_embs, eng.corpus_mask, q[:4],
+                                kprime=10, max_candidates=32,
+                                support=(0.0, 1.0))
+            cand, a, b = c1.doc_ids, c1.a, c1.b
+        else:
+            nb = 32 if len(batch[0].cand_ids) > 16 else 16
+            cand_np = pad_candidates([r.cand_ids for r in batch], nb)
+            a, b = (torch.as_tensor(x, device=card) for x in support_bounds(
+                cand_np, [16] * 4, 16, (0.0, 1.0)))
+            cand = torch.as_tensor(cand_np, device=card)
+        flavor = "bandit" if cand.shape[1] == 32 else "dense"
+        seeds = draws.split(draws.fold_in(base, ordinal), 4)
+        want = make_serving_step(flavor, topk=5)(
+            eng.corpus_embs, eng.corpus_mask, q[:4], cand, a, b, seeds,
+            alpha_scale=1.0, round_cap=0)
+        scores, ids, frac, _ = (x.cpu().numpy() for x in want)
+        for i in range(4):
+            c = got[4 * ordinal + i]
+            assert c.flavor == flavor
+            assert np.array_equal(c.topk_ids, ids[i])
+            assert np.array_equal(c.topk_scores, scores[i])
+            assert c.reveal_fraction == float(frac[i])
+    assert served == dict(_build.LAUNCHES)
+    q_ = "_q" if fmt == "int8" else ""
+    assert served["fused_reveal" + q_] > 0 and served["maxsim" + q_] > 0
+
+
+def test_async_engine_on_the_card_equals_sync(card):
+    ds, cfg, reqs, _, _ = _engine_case(card, "bf16")
+    want = _serve(RetrievalEngine(ds.doc_embs, ds.doc_mask, cfg,
+                                  device=card), reqs)
+    for mode in ("batch", "supervised"):
+        eng = AsyncRetrievalEngine(
+            ds.doc_embs, ds.doc_mask,
+            dataclasses.replace(cfg, supervise=mode == "supervised"),
+            fault_plan=(FaultPlan([InjectedFault("dispatch", 2, "kill")])
+                        if mode == "supervised" else None), device=card)
+        got = _serve(eng, reqs, started=True)
+        assert sorted(got) == sorted(want)
+        for rid, c in want.items():
+            assert np.array_equal(got[rid].topk_ids, c.topk_ids)
+            assert np.array_equal(got[rid].topk_scores, c.topk_scores)
+        assert eng.metrics.compiles_after_warmup == 0

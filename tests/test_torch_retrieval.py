@@ -36,6 +36,8 @@ from repro_torch.retrieval.index import from_arrays, from_numpy, \
 from repro_torch.retrieval.pipeline import candidates_for, serve_queries
 from repro_torch.retrieval.service import init_stream_state, \
     make_serving_step, rerank_bandit_step, rerank_dense_step
+from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig,
+                               RetrievalEngine)
 from test_torch_core import JaxReplayDraws, key_data
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -218,10 +220,16 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
             serve_queries(idx, ds.queries)
         with pytest.raises((RuntimeError, AssertionError)):
             from_numpy(ds.doc_embs, ds.doc_mask, ds.doc_lens)
-    # Seeds and empty stream states are made on the card by default.
+    # Seeds, empty stream states and the serving engines' corpora are made
+    # on the card by default.
+    cfg = EngineConfig(batch_size=2, token_buckets=(4,), cand_buckets=(4,))
     for make in (lambda: TorchDraws().key(0), lambda: TorchDraws().keys(0, 2),
                  lambda: init_frontier_state(2, 4, 3).draw,
-                 lambda: init_stream_state(2, 4, 3).rounds):
+                 lambda: init_stream_state(2, 4, 3).rounds,
+                 lambda: RetrievalEngine(ds.doc_embs, ds.doc_mask,
+                                         cfg).corpus_embs,
+                 lambda: AsyncRetrievalEngine(ds.doc_embs, ds.doc_mask,
+                                              cfg).corpus_embs):
         if torch.cuda.is_available():
             assert make().is_cuda
         else:
