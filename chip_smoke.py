@@ -52,7 +52,14 @@ Phases, in order:
      dispatch kill, on phase 4's corpus, queries and stage-1 candidates,
      each completion held to the serving steps bit for bit, with
      requests/s, latency p50/p99 and a profile of each mode (see
-     ``serving_engine``).
+     ``serving_engine``);
+ 10. sharded serving: phase 4's f32 corpus and its int8 encoding split
+     into 4 shards on the one card, phase 4's candidates routed to them:
+     the sharded dense, budgeted, two-phase and bandit steps held to the
+     single-device results, routed stage 1 held to the host-routed step
+     bit for bit on a slab and run at full size, and the engine on the
+     mesh with a shard failover, each completion held to the sharded or
+     routed step bit for bit (see ``sharded_serving``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -486,6 +493,462 @@ def serving_engine(dev, index, ds, cand, records, profiled_line, smi, t_start):
           f"stop() served all {nq} queued requests; (d) supervised == (b) "
           "bit for bit", flush=True)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    return served
+
+
+def sharded_serving(dev, index, ds, cand, dense4, dense_int8, step_ms5,
+                    profiled_line, smi, t_start):
+    """10. Sharded serving on the card: phase 4's 65,536-doc f32 corpus and
+    its int8 encoding, each split into S = 4 shards on the one card (mesh
+    (("data", 2), ("model", 2))), every shard a view of the one resident
+    tensor; phase 4's 16 queries and stage-1 candidates routed to their
+    shards by ``route_batch`` (N_loc = 256).
+
+    (a) sharded dense, f32 and int8: top-5 id sets equal phase 4's dense
+        (``dense4``) and phase 5's int8 dense (``dense_int8``), scores
+        within RTOL/ATOL;
+    (b) budgeted: at ``tokens_per_doc = T`` equal to (a); at 8 tokens
+        every ``gather_maxsim`` launch held to ``gather_maxsim_plain``;
+    (c) two-phase: ``survivors = N_loc`` equal to (a); overlap@5 printed
+        at ``survivors = 2``;
+    (d) sharded bandit, f32 and int8, phase 4's ``BanditConfig``:
+        overlap@5 with dense >= 0.9, reveal fraction < 1, at ``alpha_ef =
+        1e9`` the ids equal dense (where dense's 5th/6th gap > 1e-4), ms
+        per batch beside phase 5's single-device step (``step_ms5``);
+    (e) routed stage 1, dense and bandit: on a 1,024-doc slab at full
+        coverage (k' = C*L, n_local = c_loc) bit-equal to the host-routed
+        step; at full size with ``n_total = 256`` split by quota, overlap@5
+        with phase 4's dense and the quota-share columns (reported);
+    (f) ``RetrievalEngine(mesh_axes=...)``, ``stage1="host"`` (48
+        requests as phase 9) and ``"local"`` (the 16 candidate-less
+        ones): every completion equal to the sharded or routed step on
+        the same inputs and seeds bit for bit, ``compiles_after_warmup``
+        0; after ``fail_shard(1)`` no completion holds a doc of shard 1
+        and each equals the step with that ``healthy`` mask; after
+        ``restore_shard(1)`` the healthy results come back.
+
+    Returns the kernels' launches in the served runs (not the checks)."""
+    import collections
+
+    from repro_torch.configs.base import BanditConfig
+    from repro_torch.core.metrics import overlap_at_k
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_maxsim import gather_maxsim_plain
+    from repro_torch.retrieval import service
+    from repro_torch.retrieval.pipeline import candidates_for
+    from repro_torch.retrieval.service import (make_rerank_budgeted_step,
+                                               make_rerank_two_phase_step,
+                                               make_routed_serving_step,
+                                               make_sharded_serving_step)
+    from repro_torch.retrieval.sharded import (route_aligned, route_batch,
+                                               shard_corpus)
+    from repro_torch.serve import (EngineConfig, Request, RetrievalEngine,
+                                   pad_candidates, support_bounds)
+
+    t_phase = time.perf_counter()
+    axes = (("data", 2), ("model", 2))
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    S = mesh.size
+    nq, T, M = ds.queries.shape
+    queries = torch.as_tensor(ds.queries, device=dev)
+    served = collections.Counter()
+    bcfg = BanditConfig(k=K)                  # phase 4's
+    bkw = dict(alpha_ef=bcfg.alpha_ef, delta=bcfg.delta,
+               block_docs=bcfg.block_docs, block_tokens=bcfg.block_tokens)
+
+    def sync_dev():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted(fn, tally=True):
+        """Run ``fn`` once: its result, launches and seconds."""
+        _build.reset_launches()
+        sync_dev()
+        t = time.perf_counter()
+        res = fn()
+        sync_dev()
+        secs = time.perf_counter() - t
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if tally:
+            served.update(counts)
+        return res, counts, secs
+
+    def warm_ms(fn, n=3):
+        runs = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            sync_dev()
+            runs.append(time.perf_counter() - t)
+        return statistics.median(runs) * 1e3
+
+    def np_(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    def same_sets(label, got, want, gaps=None):
+        """Top-K id sets per query (queries with a 5th/6th gap <= 1e-4 in
+        ``gaps`` skipped) and, without ``gaps``, sorted scores within
+        RTOL/ATOL. Returns the queries checked."""
+        gs, gi = np_(got[0]), np_(got[1])
+        ws, wi = np_(want[0]), np_(want[1])
+        rows = [b for b in range(nq) if gaps is None or gaps[b] > 1e-4]
+        bad = [b for b in rows if set(gi[b]) != set(wi[b])]
+        if bad:
+            fail(f"phase 10 {label}: queries {bad} differ in top-{K} ids")
+        if gaps is None and not np.allclose(np.sort(gs, 1), np.sort(ws, 1),
+                                            rtol=RTOL, atol=ATOL):
+            fail(f"phase 10 {label}: scores beyond rtol={RTOL}, "
+                 f"atol={ATOL}")
+        return len(rows)
+
+    def overlap(a, b):
+        return float(overlap_at_k(torch.as_tensor(np_(a)),
+                                  torch.as_tensor(np_(b))).mean())
+
+    def bitwise(label, got, want):
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"phase 10 {label}: not bit-equal")
+
+    # The sharded corpora ----------------------------------------------------
+    t = time.perf_counter()
+    C = index.doc_embs.shape[0]
+    pooled = torch.empty((C, M), dtype=torch.float32, device=dev)
+    for c0 in range(0, C, 4096):                 # masked mean, in chunks
+        e, m = index.doc_embs[c0:c0 + 4096], index.doc_mask[c0:c0 + 4096]
+        pooled[c0:c0 + 4096] = ((e * m[..., None]).sum(1)
+                                / m.sum(1, keepdim=True).clamp(min=1))
+    sc = shard_corpus(index.doc_embs, index.doc_mask, mesh, pooled=pooled,
+                      n_centroids=8)
+    sc8 = shard_corpus(index.doc_embs, index.doc_mask, mesh,
+                       corpus_format="int8")
+    sync_dev()
+    dps = sc.docs_per_shard
+    views = all(p.data_ptr() == index.doc_embs[s * dps].data_ptr()
+                for s, p in enumerate(sc.embs.parts))
+    if not views or sc.n_shards != S:
+        fail("phase 10: the f32 shards are not views of phase 4's corpus")
+    print(f"phase 10 corpus: {S} shards of {dps} docs on {dev}, f32 shards "
+          f"are views of phase 4's resident tensor (no copy), int8 "
+          f"{sc8.embs.whole.data.numel() / 1e9:.3f} GB payload, pooled "
+          f"summaries and an 8-centroid router; built in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    ids4 = cand.doc_ids.cpu().numpy()
+    cl, (al, bl) = route_batch(ids4, (cand.a.cpu().numpy(),
+                                      cand.b.cpu().numpy()), dps, S)
+    cl_t, al_t, bl_t = (torch.as_tensor(x, device=dev) for x in (cl, al, bl))
+    per_shard = (cl >= 0).sum(2).sum(0).tolist()
+    print(f"phase 10 routing: {int((ids4 >= 0).sum())} candidates -> "
+          f"(16, {S}, {cl.shape[2]}) slots; per shard {per_shard}",
+          flush=True)
+    args = (queries, cl_t, al_t, bl_t, sc.valid_docs, 0)
+
+    # (a) sharded dense -------------------------------------------------------
+    dense = {}
+    gaps = {}
+    for fmt, corpus, want, kname in (("f32", sc, dense4, "maxsim"),
+                                     ("int8", sc8, dense_int8, "maxsim_q")):
+        cf = "bf16" if fmt == "f32" else fmt
+        step = make_sharded_serving_step(mesh, "dense", topk=K,
+                                         corpus_format=cf)
+        call = functools.partial(step, corpus.embs, corpus.mask, *args)
+        got, counts, _ = counted(call)
+        six = np_(make_sharded_serving_step(
+            mesh, "dense", topk=K + 1, corpus_format=cf)(
+            corpus.embs, corpus.mask, *args)[0])
+        gaps[fmt] = six[:, K - 1] - six[:, K]
+        if counts.get(kname) != S or len(counts) != 1:
+            fail(f"phase 10a {fmt}: launches {counts}, want {S} {kname}")
+        same_sets(f"(a) dense {fmt}", got, want)
+        dense[fmt] = got
+        print(f"phase 10a dense {fmt}: top-{K} ids == single-device dense, "
+              f"scores within rtol={RTOL}, atol={ATOL}; launches {counts}; "
+              f"{warm_ms(call):.1f} ms per batch of {nq} (median of 3); "
+              f"stats {np_(got[3]).tolist()}", flush=True)
+
+    # (b) budgeted ------------------------------------------------------------
+    tok = np.broadcast_to(np.arange(T, dtype=np.int32)[None, None],
+                          (nq, ids4.shape[1], T))
+    tok_l = torch.as_tensor(route_aligned(tok, ids4, cl, dps), device=dev)
+    full = make_rerank_budgeted_step(mesh, topk=K, tokens_per_doc=T,
+                                     valid_docs=sc.valid_docs)
+    got, counts, _ = counted(lambda: full(sc.embs, sc.mask, queries, cl_t,
+                                          tok_l))
+    same_sets("(b) budgeted at T", got, dense["f32"])
+    rng = np.random.default_rng(SEED)
+    tok8 = rng.integers(0, T, (nq, ids4.shape[1], 8)).astype(np.int32)
+    tok8_l = torch.as_tensor(route_aligned(tok8, ids4, cl, dps), device=dev)
+    step8 = make_rerank_budgeted_step(mesh, topk=K, tokens_per_doc=8,
+                                      valid_docs=sc.valid_docs)
+    recorded = []
+    real_op = service.gather_maxsim_op
+
+    def recording_op(*a):
+        recorded.append((a, real_op(*a)))
+        return recorded[-1][1]
+
+    service.gather_maxsim_op = recording_op
+    try:
+        got8, counts8, _ = counted(lambda: step8(sc.embs, sc.mask, queries,
+                                                 cl_t, tok8_l))
+    finally:
+        service.gather_maxsim_op = real_op
+    if counts.get("gather_maxsim") != S or counts8.get("gather_maxsim") != S \
+            or len(recorded) != S:
+        fail(f"phase 10b: launches {counts} / {counts8}")
+    err = max(check_close(f"phase 10b launch {i}", out,
+                          gather_maxsim_plain(*a))
+              for i, (a, out) in enumerate(recorded))
+    call8 = functools.partial(step8, sc.embs, sc.mask, queries, cl_t, tok8_l)
+    print(f"phase 10b budgeted: tokens_per_doc=T == (a) (ids, scores within "
+          f"rtol={RTOL}, atol={ATOL}); 8 tokens: {len(recorded)} "
+          f"gather_maxsim launches each == gather_maxsim_plain "
+          f"(max_abs_err {err:.3g}), overlap@{K} with dense "
+          f"{overlap(got8[1], dense['f32'][1]):.4f}; {warm_ms(call8):.1f} ms "
+          f"per batch (8 tokens)", flush=True)
+
+    # (c) two-phase -----------------------------------------------------------
+    n_loc = cl.shape[2]
+    for surv in (n_loc, 2):
+        step = make_rerank_two_phase_step(mesh, topk=K, survivors=surv,
+                                          valid_docs=sc.valid_docs)
+        call = functools.partial(step, sc.embs, sc.mask, sc.pooled, queries,
+                                 cl_t)
+        got, counts, _ = counted(call)
+        if counts.get("maxsim") != S:
+            fail(f"phase 10c: launches {counts}")
+        if surv == n_loc:
+            same_sets("(c) two-phase at N_loc survivors", got, dense["f32"])
+        print(f"phase 10c two-phase survivors={surv}: "
+              + ("== (a)" if surv == n_loc else
+                 f"overlap@{K} with dense "
+                 f"{overlap(got[1], dense['f32'][1]):.4f}")
+              + f"; launches {counts}; {warm_ms(call):.1f} ms per batch",
+              flush=True)
+
+    # (d) sharded bandit ------------------------------------------------------
+    for fmt, corpus, want, kname in (("f32", sc, dense4, "fused_reveal"),
+                                     ("int8", sc8, dense_int8,
+                                      "fused_reveal_q")):
+        cf = "bf16" if fmt == "f32" else fmt
+        step = make_sharded_serving_step(mesh, "bandit", topk=K,
+                                         corpus_format=cf, **bkw)
+        call = functools.partial(step, corpus.embs, corpus.mask, *args)
+        got, counts, first = counted(call)
+        stats = np_(got[3])
+        ov, frac = overlap(got[1], want[1]), float(np_(got[2]).mean())
+        if not counts.get(kname) or ov < 0.9 or not frac < 1.0:
+            fail(f"phase 10d {fmt}: launches {counts}, overlap {ov}, reveal "
+                 f"fraction {frac}")
+        ms = warm_ms(call)
+        print(f"phase 10d bandit {fmt}: overlap@{K} with dense {ov:.4f} "
+              f"(>= 0.9); mean reveal fraction {frac:.4f} (< 1); launches "
+              f"{counts} (rounds per shard {stats[:, 1].tolist()}); "
+              f"{ms:.1f} ms per batch (median of 3; first {first * 1e3:.1f})"
+              f" against {step_ms5[fmt]:.1f} for phase 5's single-device "
+              f"step ({ms / step_ms5[fmt]:.3f}x); {smi}", flush=True)
+        if fmt == "f32":
+            bandit_call, bandit_ms = call, ms
+        hard = make_sharded_serving_step(mesh, "bandit", topk=K,
+                                         corpus_format=cf,
+                                         **dict(bkw, alpha_ef=1e9))
+        gh, counts, secs = counted(functools.partial(
+            hard, corpus.embs, corpus.mask, *args))
+        n = same_sets(f"(d) {fmt} alpha_ef=1e9", gh, want, gaps=gaps[fmt])
+        print(f"phase 10d bandit {fmt} alpha_ef=1e9: ids == dense on {n}/"
+              f"{nq} queries (dense 5th/6th gap > 1e-4); reveal fraction "
+              f"{float(np_(gh[2]).mean()):.4f}; {secs * 1e3:.1f} ms",
+              flush=True)
+    print(profiled_line("phase 10d sharded bandit f32", bandit_call,
+                        bandit_ms, "reveal_kernel<DenseRows",
+                        ("fused_reveal",)), flush=True)
+
+    # (e) routed stage 1 ------------------------------------------------------
+    slab_e, slab_m = index.doc_embs[:1024], index.doc_mask[:1024]
+    sl = shard_corpus(slab_e, slab_m, mesh, n_centroids=8)
+    kp = 1024 * slab_e.shape[1]
+    hc = candidates_for(slab_e, slab_m, queries, kprime=kp,
+                        max_candidates=1024, support=(0.0, 1.0))
+    cl_s, (a_s, b_s) = route_batch(hc.doc_ids.cpu().numpy(),
+                                   (hc.a.cpu().numpy(), hc.b.cpu().numpy()),
+                                   sl.docs_per_shard, S,
+                                   n_local=sl.docs_per_shard)
+    for flavor in ("dense", "bandit"):
+        kw = bkw if flavor == "bandit" else {}
+        host = make_sharded_serving_step(mesh, flavor, topk=K, **kw)(
+            sl.embs, sl.mask, queries,
+            *(torch.as_tensor(x, device=dev) for x in (cl_s, a_s, b_s)),
+            sl.valid_docs, 0)
+        routed, counts, _ = counted(lambda: make_routed_serving_step(
+            mesh, flavor, topk=K, n_local=sl.docs_per_shard, n_total=0,
+            kprime=kp, **kw)(sl.embs, sl.mask, sl.router.centroids,
+                             sl.router.shard_mass, queries, sl.valid_docs,
+                             0))
+        bitwise(f"(e) routed {flavor} on the slab", routed[:3], host[:3])
+        print(f"phase 10e routed {flavor}, 1,024-doc slab at full coverage "
+              f"(k'={kp}, n_local={sl.docs_per_shard}): ids, scores and "
+              f"reveal fractions == the host-routed sharded step bit for "
+              f"bit; launches {counts}", flush=True)
+    for flavor in ("dense", "bandit"):
+        kw = bkw if flavor == "bandit" else {}
+        step = make_routed_serving_step(mesh, flavor, topk=K, n_local=256,
+                                        n_total=256, kprime=10, **kw)
+        call = functools.partial(step, sc.embs, sc.mask, sc.router.centroids,
+                                 sc.router.shard_mass, queries,
+                                 sc.valid_docs, 0)
+        got, counts, first = counted(call)
+        stats = np_(got[3])
+        ms = warm_ms(call)
+        print(f"phase 10e routed {flavor} full size, n_total=256 by quota: "
+              f"overlap@{K} with phase 4 dense "
+              f"{overlap(got[1], dense4[1]):.4f} (reported); mean reveal "
+              f"fraction {float(np_(got[2]).mean()):.4f}; quota share "
+              f"mean/max per shard {stats[:, 3].round(4).tolist()} / "
+              f"{stats[:, 4].round(4).tolist()}; launches {counts}; "
+              f"{ms:.1f} ms per batch (median of 3; first "
+              f"{first * 1e3:.1f}); {smi}", flush=True)
+        if flavor == "bandit":
+            print(profiled_line("phase 10e routed bandit", call, ms,
+                                "reveal_kernel<DenseRows",
+                                ("fused_reveal",)), flush=True)
+
+    # (f) the engine on the mesh ---------------------------------------------
+    cfg = EngineConfig(batch_size=nq, deadline_s=30.0, token_buckets=(T,),
+                       cand_buckets=(64, MAX_CANDIDATES), max_k=K,
+                       flavor="auto", bandit_min_candidates=MAX_CANDIDATES,
+                       stage1_candidates=MAX_CANDIDATES, stage1_kprime=10,
+                       seed=SEED, mesh_axes=axes)
+    ids = [r[r >= 0] for r in ids4]
+    requests = ([Request(query=ds.queries[i], k=K, cand_ids=ids[i])
+                 for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K, cand_ids=ids[i][:64])
+                   for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K) for i in range(nq)])
+
+    def serve(eng, reqs):
+        def run():
+            for r in reqs:
+                eng.submit(r)
+            return eng.drain()
+
+        done, counts, secs = counted(run)
+        got = {c.rid: c for c in done}
+        if len(got) != len(done) or len(done) != len(reqs):
+            fail(f"phase 10f: {len(done)} completions for {len(reqs)}")
+        if eng.metrics.compiles_after_warmup:
+            fail("phase 10f: builds after warmup")
+        return [got[r] for r in sorted(got)], counts, secs
+
+    def step_inputs(batch, nb):
+        """The engine's routed (16, S, nb) inputs of one batch."""
+        if batch[0].cand_ids is None:
+            c, a, b = (x.cpu().numpy() for x in (cand.doc_ids, cand.a,
+                                                  cand.b))
+        else:
+            c = pad_candidates([r.cand_ids for r in batch], nb)
+            a, b = support_bounds(c, [T] * nq, T, cfg.support)
+        c_l, routed = route_batch(c, (a, b), dps, S, n_local=nb)
+        return c, [torch.as_tensor(x, device=dev) for x in (c_l, *routed)]
+
+    def held(label, eng, comps, reqs_all, ordinals, healthy):
+        """Each batch of ``comps`` (served from ``reqs_all`` in order) ==
+        the sharded step at its batch ordinal."""
+        for j, ordinal in enumerate(ordinals):
+            batch = comps[j * nq:(j + 1) * nq]
+            reqs = reqs_all[j * nq:(j + 1) * nq]
+            nb = eng.buckets.cand_bucket(max(
+                len(r.cand_ids) if r.cand_ids is not None
+                else MAX_CANDIDATES for r in reqs))
+            flavor = eng.flavor_for(nb)
+            c, ins = step_inputs(reqs, nb)
+            if flavor == "dense":
+                ins[1] = ins[2] = torch.zeros_like(ins[1])
+            want = make_sharded_serving_step(
+                mesh, flavor, topk=K, base_seed=SEED)(
+                eng.corpus_embs, eng.corpus_mask, queries, *ins,
+                eng.corpus.valid_docs, ordinal, healthy, 1.0, 0)
+            scores, gids, frac, _ = (np_(x) for x in want)
+            for i, comp in enumerate(batch):
+                if not (comp.flavor == flavor
+                        and np.array_equal(comp.topk_ids, gids[i])
+                        and np.array_equal(comp.topk_scores, scores[i])
+                        and comp.reveal_fraction == float(frac[i])):
+                    fail(f"phase 10f {label}: rid {comp.rid} differs from "
+                         f"the sharded step")
+
+    t = time.perf_counter()
+    eng = RetrievalEngine(index.doc_embs, index.doc_mask, cfg, device=dev)
+    warm = eng.warmup()
+    print(f"phase 10f host engine built and warmed in "
+          f"{time.perf_counter() - t:.1f} s, buckets {warm}", flush=True)
+    comps, counts, secs = serve(eng, requests)
+    held("host", eng, comps, requests, (0, 1, 2), np.ones(S, bool))
+    s = eng.metrics.summary()
+    print(f"phase 10f engine stage1='host': {len(comps)} requests in "
+          f"{secs * 1e3:.1f} ms = {len(comps) / secs:.1f} requests/s; "
+          f"latency p50 {s['latency_p50_ms']:.1f} ms; every completion == "
+          f"the sharded step bit for bit; compiles_after_warmup "
+          f"{s['compiles_after_warmup']}; shard rounds "
+          f"{s['shard_rounds_total']}; launches {counts}; {smi}", flush=True)
+    carrying = requests[:2 * nq]
+    eng.fail_shard(1)
+    healthy = np.array([True, False, True, True])
+    down, counts, _ = serve(eng, carrying)
+    bad = [c.rid for c in down if ((c.topk_ids >= dps)
+                                   & (c.topk_ids < 2 * dps)).any()]
+    if bad:
+        fail(f"phase 10f: rids {bad} hold a doc of the failed shard 1")
+    held("shard 1 down", eng, down, carrying, (3, 4), healthy)
+    cov = np.mean([c.coverage for c in down])
+    eng.restore_shard(1)
+    back, _, _ = serve(eng, carrying)
+    held("restored", eng, back, carrying, (5, 6), np.ones(S, bool))
+    dense_again = all(np.array_equal(x.topk_ids, y.topk_ids)
+                      and np.array_equal(x.topk_scores, y.topk_scores)
+                      for x, y in zip(back[nq:], comps[nq:2 * nq]))
+    s = eng.metrics.summary()
+    if not dense_again or s["failovers"] != 1 \
+            or s["shard_healthy"] != [True] * S \
+            or eng.metrics.compiles_after_warmup:
+        fail("phase 10f: restore did not bring the healthy results back")
+    print(f"phase 10f failover: after fail_shard(1) no completion holds a "
+          f"doc of shard 1, each == the step with healthy {healthy.tolist()}"
+          f", mean coverage {cov:.4f}; after restore_shard(1) each == the "
+          f"healthy step and the dense batch == the first pass bit for "
+          f"bit; failovers {s['failovers']}; compiles_after_warmup 0; "
+          f"launches while down {counts}", flush=True)
+
+    t = time.perf_counter()
+    loc = RetrievalEngine(index.doc_embs, index.doc_mask,
+                          dataclasses.replace(cfg, stage1="local"),
+                          device=dev)
+    loc.warmup()
+    print(f"phase 10f local engine built and warmed in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    local_reqs = requests[2 * nq:]
+    comps, counts, secs = serve(loc, local_reqs)
+    cents, mass = loc.corpus.router_arrays()
+    want = make_routed_serving_step(
+        mesh, "bandit", topk=K, n_local=loc._stage1_n, n_total=0,
+        kprime=10, base_seed=SEED)(loc.corpus_embs, loc.corpus_mask, cents,
+                                   mass, queries, loc.corpus.valid_docs, 0,
+                                   np.ones(S, bool), 1.0, 0)
+    scores, gids, frac, _ = (np_(x) for x in want)
+    for i, c in enumerate(comps):
+        if not (np.array_equal(c.topk_ids, gids[i])
+                and np.array_equal(c.topk_scores, scores[i])
+                and c.reveal_fraction == float(frac[i])):
+            fail(f"phase 10f local: rid {c.rid} differs from the routed "
+                 "step")
+    s = loc.metrics.summary()
+    print(f"phase 10f engine stage1='local': {len(comps)} requests in "
+          f"{secs * 1e3:.1f} ms; every completion == the routed step bit "
+          f"for bit; overlap@{K} with phase 4 dense "
+          f"{overlap(gids, dense4[1]):.4f}; routed_skew "
+          f"{s['routed_skew']:.4f}; compiles_after_warmup "
+          f"{s['compiles_after_warmup']}; launches {counts}", flush=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     return served
 
 
@@ -1200,7 +1663,7 @@ def main() -> int:
     q_kernel_of = {"dense": "maxsim_q", "pooled": "fused_reveal_q",
                    "pooled_chain": "gather_maxsim_q"}
     q_launches = dict.fromkeys(q_kernel_of.values(), 0)
-    res5 = {}
+    res5, step_ms5 = {}, {}
     seeds = TorchDraws().keys(SEED, nq, "cuda")     # serve_queries' seeds
     for fmt, corpus in corpora.items():
         args = (corpus.embs, corpus.mask, queries, cand.doc_ids, cand.a,
@@ -1222,6 +1685,7 @@ def main() -> int:
                 runs.append(time.perf_counter() - t)
             step_ms = statistics.median(runs) * 1e3
             res5[fmt, label] = [x.cpu().numpy() for x in got]
+            step_ms5[fmt, label] = step_ms
             scores, ids, frac, stats = res5[fmt, label]
             print(f"compressed {fmt} {label}: launches {counts}; first call "
                   f"{first * 1e3:.1f} ms; rerank step alone (excludes stage "
@@ -1691,6 +2155,22 @@ def main() -> int:
     served = serving_engine(torch.device("cuda"), index, ds, cand, records,
                             profiled_line, smi, t_start)
     print(f"phase 9: launches in the served runs {dict(served)}", flush=True)
+    for kname, n in served.items():
+        records[kname]["launches"] += n
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 10. sharded serving ------------------------------------------------------
+    served = sharded_serving(
+        torch.device("cuda"), index, ds, cand,
+        (out["dense"].topk_scores, out["dense"].topk_ids),
+        res5["int8", "dense"],
+        {fmt: step_ms5[fmt, "pooled"] for fmt in ("f32", "int8")},
+        profiled_line, smi, t_start)
+    print(f"phase 10: launches in the served runs {dict(served)}",
+          flush=True)
+    for kname in ("maxsim", "maxsim_q", "gather_maxsim", "fused_reveal",
+                  "fused_reveal_q"):
+        if not served.get(kname):
+            fail(f"phase 10: {kname} never launched on the sharded paths")
     for kname, n in served.items():
         records[kname]["launches"] += n
     print(f"elapsed {time.perf_counter() - t_start:.1f} s (end)", flush=True)

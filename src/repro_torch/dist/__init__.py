@@ -1,8 +1,13 @@
-"""Serving-side fault tolerance: the deadline batcher and the chaos
-harness."""
+"""Serving-side fault tolerance (the deadline batcher, the chaos harness,
+``reshard``) and the single-process device mesh with the corpus placement
+table."""
 from repro_torch.dist.fault import (ChaosClock, ChaosKill, DeadlineBatcher,
                                     FaultPlan, InjectedFault, apply_delay,
-                                    poison_corpus)
+                                    poison_corpus, reshard)
+from repro_torch.dist.mesh import (Mesh, Sharded, corpus_axes, corpus_specs,
+                                   make_host_mesh, make_mesh, place)
 
 __all__ = ["ChaosClock", "ChaosKill", "DeadlineBatcher", "FaultPlan",
-           "InjectedFault", "apply_delay", "poison_corpus"]
+           "InjectedFault", "apply_delay", "poison_corpus", "reshard",
+           "Mesh", "Sharded", "corpus_axes", "corpus_specs",
+           "make_host_mesh", "make_mesh", "place"]

@@ -12,10 +12,11 @@
   deadline accounting stay deterministic in tests.
 * :func:`poison_corpus` - seeded NaN/Inf corruption of a fraction of corpus
   rows, for exercising the finite-score quarantine guard end to end.
+* :func:`reshard` - place a host tree on a ``dist.mesh.Mesh`` by a
+  matching tree of placements.
 
 The JAX module's ``simulate_failure`` (the training checkpoint/restart
-contract) and ``reshard`` (placing a state tree on a mesh) belong to the
-training and mesh slices and are not ported here.
+contract) belongs to the training slice and is not ported here.
 """
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.dist.mesh import place
 
 
 class ChaosKill(RuntimeError):
@@ -320,3 +324,28 @@ class DeadlineBatcher:
         n_real = len(reqs)
         reqs = reqs + [reqs[-1]] * (self.batch_size - n_real)
         return reqs, n_real
+
+
+def reshard(tree: Any, specs: Any, mesh) -> Any:
+    """Place every leaf of ``tree`` on ``mesh`` by its placement in
+    ``specs``, a matching tree (dicts, lists and tuples) whose leaves are
+    the split dim or ``None`` for a leaf every shard holds whole. Leaves
+    are numpy-convertible or tensors; each becomes a
+    ``dist.mesh.Sharded``. A host tree can so land in a new layout."""
+    def go(x, s):
+        if isinstance(x, dict):
+            if set(x) != set(s):
+                raise ValueError(f"tree keys {sorted(x)} != spec keys "
+                                 f"{sorted(s)}")
+            return type(x)((k, go(x[k], s[k])) for k in x)
+        if isinstance(x, (list, tuple)):
+            if len(x) != len(s):
+                raise ValueError(f"tree of {len(x)} leaves, specs of "
+                                 f"{len(s)}")
+            out = [go(a, b) for a, b in zip(x, s)]
+            return type(x)(*out) if hasattr(x, "_fields") else type(x)(out)
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        return place(t, mesh, s)
+
+    return go(tree, specs)

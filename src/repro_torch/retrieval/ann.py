@@ -13,6 +13,7 @@ upper bounds:
 When any token of d_i is in the top-k' for q_t, its best token is too, so
 the scatter-max below recovers the exact h(d_i, t) for hit cells. The
 (T, C*L) similarity product is a plain matrix product (``torch.matmul``).
+``quota`` (routed stage 1) keeps only the strongest ``quota`` candidates.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ def generate_candidates(
     index_embs: torch.Tensor,      # (C, L, M)
     index_mask: torch.Tensor,      # (C, L)
     query: torch.Tensor,           # (T, M)
+    quota=None,                    # () cap on |candidates| (int or tensor)
     *,
     kprime: int = 10,
     max_candidates: int = 256,
@@ -72,6 +74,10 @@ def generate_candidates(
                                                     dtype=torch.int64,
                                                     device=dev)])
     sel = best_vals > _NEG / 2
+    if quota is not None:
+        # Skew-aware routing cap: best_vals is descending, so rank ==
+        # position; keep only the strongest ``quota`` candidates.
+        sel = sel & (torch.arange(max_candidates, device=dev) < quota)
     sorted_slots = torch.sort(torch.where(sel, best_ids, _SENTINEL)).values
     # Keep the sentinel-padded array: it stays ascending, which the
     # searchsorted hit lookup below requires (-1 padding would break the

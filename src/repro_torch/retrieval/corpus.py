@@ -11,10 +11,11 @@ single-device part of ``repro.retrieval.corpus``).
   table; :func:`route_mass` / :func:`route_quotas` turn query affinities
   into integer per-shard quotas that always sum to the budget, and
   :func:`validate_quotas` raises instead of clamping.
-* :class:`Corpus` / :func:`build_corpus` - the single-device corpus in one
-  of the resident formats of ``kernels.quant`` (the router's centroids are
-  the residual format's codebook). The mesh-resident placement
-  (``shard_corpus``) belongs to sharded serving and is not ported yet.
+* :class:`Corpus` / :func:`build_corpus` - the corpus facade the serving
+  engine holds, in one of the resident formats of ``kernels.quant`` (the
+  router's centroids are the residual format's codebook): the
+  single-device corpus (``mesh=None``) or the mesh-resident
+  ``sharded.ShardedCorpus`` placement, with one attribute surface.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.mesh import Mesh
 from repro_torch.kernels.quant import CORPUS_FORMATS, corpus_take, quantize
+from repro_torch.retrieval.sharded import shard_corpus
 
 
 def gather_tokens(embs, mask: torch.Tensor, doc_ids: torch.Tensor):
@@ -219,16 +222,47 @@ def route_quotas(mass: torch.Tensor, n_total: int,
 
 @dataclasses.dataclass(frozen=True)
 class Corpus:
-    """The single-device corpus: one shard owning every document."""
+    """One attribute surface for both placements: ``mesh=None`` is the
+    single-device corpus (one shard owning every document); with a mesh,
+    ``embs``/``mask``/``pooled`` are the ``ShardedCorpus`` placement
+    (``dist.mesh.Sharded`` values, doc dim over every axis, ragged tail
+    padded and counted in ``valid_docs``)."""
 
-    embs: object                 # (C, L, M) f32 | bf16 tensor, or QuantTokens
-    mask: torch.Tensor           # (C, L) bool
+    embs: object                 # (C_pad, L, M) f32 | bf16 tensor,
+                                 #   QuantTokens, or Sharded of either
+    mask: object                 # (C_pad, L) bool tensor or Sharded
     n_docs: int
     n_shards: int
     docs_per_shard: int
     valid_docs: np.ndarray       # (n_shards,) i32
     router: Optional[CentroidRouter] = None
     fmt: str = "bf16"            # resident format (CORPUS_FORMATS)
+    mesh: Optional[Mesh] = None
+    pooled: object = None        # (C_pad, M) two-phase summaries
+
+    @property
+    def padded_docs(self) -> int:
+        return self.n_shards * self.docs_per_shard
+
+    def valid_docs_device(self) -> torch.Tensor:
+        """(n_shards,) int32 on the corpus's (merge) device."""
+        dev = (self.mask.device if self.mesh is None
+               else self.mesh.devices[0])
+        return torch.as_tensor(self.valid_docs, dtype=torch.int32,
+                               device=dev)
+
+    def router_arrays(self):
+        """(centroids, shard_mass) for the routed serving step; zero-row
+        placeholders when no router was built (route_mass then yields zero
+        mass and quotas fall back to uniform)."""
+        if self.router is not None:
+            return self.router.centroids, self.router.shard_mass
+        dev = (self.mask.device if self.mesh is None
+               else self.mesh.devices[0])
+        return (torch.zeros((0, self.embs.shape[2]), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((0, self.n_shards), dtype=torch.float32,
+                            device=dev))
 
 
 def _host(x) -> np.ndarray:
@@ -240,10 +274,14 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def build_corpus(embs, mask, *, mesh=None, n_centroids: int = 0,
-                 router_iters: int = 10, router_seed: int = 0,
+def build_corpus(embs, mask, *, mesh: Optional[Mesh] = None,
+                 n_centroids: int = 0, router_iters: int = 10,
+                 router_seed: int = 0, pooled=None,
                  corpus_format: str = "bf16", device="cuda") -> Corpus:
-    """Build the single-device corpus facade on ``device``.
+    """Build the corpus facade: with a ``mesh``, ``shard_corpus`` plus
+    (``n_centroids > 0``) the centroid router built at shard time over the
+    same contiguous blocks, on the mesh's devices; without one, the
+    single-device corpus on ``device``.
 
     ``corpus_format`` ('bf16' | 'int8' | 'residual') selects the resident
     encoding: 'bf16' keeps the source dtype (bf16 stays bf16, anything else
@@ -256,9 +294,14 @@ def build_corpus(embs, mask, *, mesh=None, n_centroids: int = 0,
         raise ValueError(f"unknown corpus format {corpus_format!r}; "
                          f"expected one of {CORPUS_FORMATS}")
     if mesh is not None:
-        raise NotImplementedError(
-            "build_corpus(mesh=...): the mesh-resident corpus belongs to "
-            "sharded serving, which is not ported yet")
+        sc = shard_corpus(embs, mask, mesh, pooled=pooled,
+                          n_centroids=n_centroids, router_iters=router_iters,
+                          router_seed=router_seed,
+                          corpus_format=corpus_format)
+        return Corpus(embs=sc.embs, mask=sc.mask, n_docs=sc.n_docs,
+                      n_shards=sc.n_shards, docs_per_shard=sc.docs_per_shard,
+                      valid_docs=sc.valid_docs, router=sc.router, fmt=sc.fmt,
+                      mesh=mesh, pooled=sc.pooled)
     src = embs if isinstance(embs, torch.Tensor) else torch.as_tensor(
         np.asarray(embs))
     dmask = torch.as_tensor(_host(mask).astype(bool))
@@ -283,4 +326,6 @@ def build_corpus(embs, mask, *, mesh=None, n_centroids: int = 0,
                             else router.centroids)
     return Corpus(embs=resident, mask=dmask.to(dev), n_docs=C, n_shards=1,
                   docs_per_shard=C, valid_docs=np.asarray([C], np.int32),
-                  router=router, fmt=corpus_format)
+                  router=router, fmt=corpus_format,
+                  pooled=None if pooled is None else torch.as_tensor(
+                      np.asarray(_host(pooled), np.float32), device=dev))

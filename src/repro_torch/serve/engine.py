@@ -34,10 +34,14 @@ key derivations on a :class:`repro_torch.core.draws.DrawSource`
 (``draws=``, default ``TorchDraws``).
 
 The engine runs on ``device`` (default ``"cuda"``); the tests pass
-``"cpu"``, where every kernel takes its plain PyTorch version. The
-mesh-resident corpus (``mesh_axes``, ``stage1="local"``), kernel
-autotuning and the compile-contract audit are not ported: setting them
-raises ``NotImplementedError``.
+``"cpu"``, where every kernel takes its plain PyTorch version. With
+``mesh_axes`` the corpus is mesh-resident (``retrieval.sharded``, every
+shard on ``device``): prepared batches are routed to their shards by
+``route_batch`` and served by the sharded steps, ``stage1="local"`` serves
+candidate-less batches through the routed step (shard-local stage 1), and
+``fail_shard`` / ``restore_shard`` flip a shard's health, an operand of the
+warmed steps. Kernel autotuning and the compile-contract audit are not
+ported: setting them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,12 +62,16 @@ import torch
 from repro_torch.core.draws import TORCH_DRAWS, DrawSource
 from repro_torch.dist.fault import (ChaosKill, DeadlineBatcher, FaultPlan,
                                     apply_delay)
+from repro_torch.dist.mesh import make_mesh
 from repro_torch.kernels.quant import CORPUS_FORMATS
 from repro_torch.retrieval.corpus import Corpus, build_corpus
 from repro_torch.retrieval.pipeline import candidates_for
 from repro_torch.retrieval.service import (init_stream_state,
+                                           make_routed_serving_step,
                                            make_serving_step,
+                                           make_sharded_serving_step,
                                            make_streaming_step)
+from repro_torch.retrieval.sharded import route_batch
 from repro_torch.serve.bucketing import (ShapeBuckets, pad_candidates,
                                          pad_queries, support_bounds)
 from repro_torch.serve.resilience import DegradeLadder, Supervisor
@@ -105,8 +113,8 @@ class EngineConfig:
     # constants of the CUDA sources); True or a table raises.
     autotune: bool = False
     tuning_table: Optional[str] = None
-    # Corpus mesh: () serves from one device, the only placement ported; a
-    # mesh raises NotImplementedError.
+    # Corpus mesh: () serves from one device; (("data", 2), ("model", 2))
+    # splits the corpus over 4 shards (all on the engine's device).
     mesh_axes: Tuple[Tuple[str, int], ...] = ()
     # Resident corpus format (kernels.quant.CORPUS_FORMATS): "bf16" keeps
     # the corpus at its source dtype (f32 stays f32); "int8" and "residual"
@@ -116,10 +124,12 @@ class EngineConfig:
     # stage-1 kNN (requests without a candidate list)
     stage1_kprime: int = 8
     stage1_candidates: int = 0        # 0 => smallest candidate bucket
-    # Stage-1 placement: "host" is the only one ported; "local" (routed,
-    # shard-local stage 1) needs a mesh.
+    # Stage-1 placement: "host" runs the kNN over the whole corpus and
+    # routes its candidates; "local" (mesh only) runs the routed step,
+    # shard-local stage 1 capped by per-shard quotas.
     stage1: str = "host"
-    # "local" only (inert here, as in JAX off the routed path).
+    # "local" only: router centroids, the global candidate budget split by
+    # quota (0 = every shard takes stage1_candidates), and prereveal.
     stage1_centroids: int = 8
     stage1_total: int = 0
     prereveal_ann: bool = False
@@ -231,7 +241,8 @@ class BatchRecord:
     frontier_occupancy: float = 1.0
     total_rounds: float = 0.0
     lockstep_waste: float = 0.0
-    # Mesh-resident corpora only (not ported): always None here.
+    # Mesh-resident corpora only: per-shard frontier occupancy, rounds and
+    # (routed step) mean quota share.
     shard_occupancy: Optional[Tuple[float, ...]] = None
     shard_rounds: Optional[Tuple[float, ...]] = None
     shard_quota_share: Optional[Tuple[float, ...]] = None
@@ -259,11 +270,13 @@ class EngineMetrics:
         # and requests admitted with a truncated candidate list.
         self.rejected: int = 0
         self.degraded: int = 0
-        # Autotuning and mesh accounting: not ported, kept at their idle
-        # values so the summary has the JAX engine's keys.
+        # Autotuning accounting: not ported, kept at its idle values so the
+        # summary has the JAX engine's keys.
         self.autotune_s: float = 0.0
         self.autotune_buckets: int = 0
         self.tuning_entries_loaded: int = 0
+        # Shard failover (mesh engines): shards that went down, and the
+        # live health vector.
         self.failovers: int = 0
         self.shard_health: Optional[List[bool]] = None
         # Serving threads restarted by the supervision watchdog.
@@ -288,6 +301,14 @@ class EngineMetrics:
     def record_degraded(self) -> None:
         with self._lock:
             self.degraded += 1
+
+    def record_failover(self) -> None:
+        with self._lock:
+            self.failovers += 1
+
+    def record_shard_health(self, healthy: Sequence[bool]) -> None:
+        with self._lock:
+            self.shard_health = [bool(h) for h in healthy]
 
     def record_restart(self, name: str) -> None:
         with self._lock:
@@ -348,7 +369,31 @@ class EngineMetrics:
             "failovers": int(n_fail),
             **({"shard_healthy": health} if health is not None else {}),
             "thread_restarts": restarts,
+            **self._shard_summary(bats),
         }
+
+    @staticmethod
+    def _shard_summary(bats: List[BatchRecord]) -> Dict[str, Any]:
+        """Per-shard aggregates over the sharded batches: summed bandit
+        rounds and mean frontier occupancy per shard, and (routed batches)
+        the mean quota share and its skew (1.0 = balanced routing,
+        n_shards = every candidate on one shard)."""
+        sharded = [b for b in bats if b.shard_rounds is not None]
+        if not sharded:
+            return {}
+        rounds = np.sum([b.shard_rounds for b in sharded], axis=0)
+        occ = np.mean([b.shard_occupancy for b in sharded], axis=0)
+        out = {
+            "n_shards": len(rounds),
+            "shard_rounds_total": [float(r) for r in rounds],
+            "shard_occupancy_mean": [float(o) for o in occ],
+        }
+        routed = [b for b in sharded if b.shard_quota_share is not None]
+        if routed:
+            qs = np.mean([b.shard_quota_share for b in routed], axis=0)
+            out["routed_quota_share_mean"] = [float(q) for q in qs]
+            out["routed_skew"] = float(np.max(qs) * len(qs))
+        return out
 
 
 class _Prepared(NamedTuple):
@@ -366,6 +411,8 @@ class _Prepared(NamedTuple):
     # Batch ordinal: the idempotency key the supervised dispatch path uses
     # to harvest a batch exactly once across thread restarts.
     bid: int = -1
+    # Per-request share of the candidates on healthy shards (None = all).
+    coverage: Optional[np.ndarray] = None
     degrade_level: int = 0
 
 
@@ -419,24 +466,32 @@ class RetrievalEngine:
                 "token rows inside the shard_map and cannot serve a "
                 f"{cfg.corpus_format!r} corpus; use stage1='host' "
                 "with candidate-carrying requests")
+        self.device = torch.device(device)
+        mesh = None
         if cfg.mesh_axes:
-            raise _not_ported("a mesh-resident corpus (mesh_axes, "
-                              "stage1='local', shard failover)", "4")
-        if cfg.stage1 == "local":
+            mesh = make_mesh(tuple(int(n) for _, n in cfg.mesh_axes),
+                             tuple(a for a, _ in cfg.mesh_axes),
+                             device=self.device)
+        elif cfg.stage1 == "local":
             raise ValueError("stage1='local' runs inside the corpus "
                              "shard_map and needs mesh_axes")
+        self._routed = mesh is not None and cfg.stage1 == "local"
         if cfg.autotune or cfg.tuning_table:
             raise _not_ported("kernel autotuning (autotune, tuning_table)",
                               "3")
         if cfg.audit:
             raise _not_ported("the compile-contract audit (audit)", "5")
-        self.device = torch.device(device)
         self._draws = draws or TORCH_DRAWS
+        # The router is built at shard time only where shard-local stage 1
+        # consumes it (and, as the codebook, for a residual corpus).
         self.corpus: Corpus = build_corpus(
-            corpus_embs, corpus_mask, router_seed=cfg.seed,
-            corpus_format=cfg.corpus_format, device=self.device)
+            corpus_embs, corpus_mask, mesh=mesh,
+            n_centroids=cfg.stage1_centroids if self._routed else 0,
+            router_seed=cfg.seed, corpus_format=cfg.corpus_format,
+            device=self.device)
         self.corpus_embs = self.corpus.embs
         self.corpus_mask = self.corpus.mask
+        self._router_args = self.corpus.router_arrays()
         self.buckets = ShapeBuckets(cfg.token_buckets, cfg.cand_buckets)
         self._stage1_n = self.buckets.cand_bucket(
             cfg.stage1_candidates or self.buckets.cand_buckets[0])
@@ -467,6 +522,17 @@ class RetrievalEngine:
             headrooms=tuple(cfg.degrade_headrooms),
             alpha_scales=tuple(cfg.degrade_alpha_scales),
             round_caps=tuple(cfg.degrade_round_caps))
+        # Per-shard health (mesh engines only): the failover mask every
+        # prepared batch snapshots; an operand of the warmed steps, so
+        # flipping it rebuilds nothing.
+        self._health_lock = threading.Lock()
+        self._healthy: Optional[np.ndarray] = None
+        if mesh is not None:
+            self._healthy = np.ones((self.corpus.n_shards,), bool)
+            self.metrics.record_shard_health(self._healthy)
+        # Stage 1 on a mesh reads the whole corpus (the all-gather, a view
+        # where every shard is on one device); made on first use.
+        self._stage1_corpus = None
 
     def _admission_headroom(self) -> float:
         """Expected batch service time the batcher must leave between
@@ -475,15 +541,38 @@ class RetrievalEngine:
         with self._state_lock:
             return max(self.cfg.deadline_headroom_s, self._service_ema)
 
-    # -- shard health (mesh engines only, not ported) ----------------------
+    @property
+    def sharded(self) -> Optional[Corpus]:
+        """The mesh-resident corpus, None on a single-device engine."""
+        return self.corpus if self.corpus.mesh is not None else None
+
+    # -- shard health / failover ------------------------------------------
 
     def shard_health(self) -> Optional[np.ndarray]:
-        """The per-shard health mask: None on a single-device engine."""
-        return None
+        """Copy of the per-shard health mask (None off-mesh)."""
+        if self._healthy is None:
+            return None
+        with self._health_lock:
+            return self._healthy.copy()
 
     def set_shard_health(self, shard: int, healthy: bool) -> None:
-        raise ValueError("shard health needs a mesh-resident corpus "
-                         "(set mesh_axes)")
+        """Flip one shard's health. An unhealthy shard gets no routed quota
+        mass (its share goes to the healthy shards) and its documents are
+        masked out of the merge; completions report the partial
+        ``coverage``. The mask is a step operand: nothing is rebuilt."""
+        if self._healthy is None:
+            raise ValueError("shard health needs a mesh-resident corpus "
+                             "(set mesh_axes)")
+        S = len(self._healthy)
+        if not 0 <= shard < S:
+            raise ValueError(f"shard {shard} out of range [0, {S})")
+        with self._health_lock:
+            went_down = bool(self._healthy[shard]) and not healthy
+            self._healthy[shard] = bool(healthy)
+            snap = self._healthy.copy()
+        if went_down:
+            self.metrics.record_failover()
+        self.metrics.record_shard_health(snap)
 
     def fail_shard(self, shard: int) -> None:
         self.set_shard_health(shard, False)
@@ -559,7 +648,23 @@ class RetrievalEngine:
                        max_block_docs=cfg.max_block_docs,
                        max_block_tokens=cfg.max_block_tokens)
         draws, base = self._draws, self._base_seed
-        if key[0] == "step":
+        if key[0] == "step" and self.sharded is not None:
+            _, flavor, tb, nb = key
+            sc = self.sharded
+            run = make_sharded_serving_step(
+                sc.mesh, flavor, engine=cfg.bandit_engine,
+                base_seed=cfg.seed, corpus_format=cfg.corpus_format,
+                draws=draws, **step_kw)
+            q, cand, a, b = self._warm_inputs(tb, nb)
+            cand_l, (a_l, b_l) = route_batch(cand, (a, b), sc.docs_per_shard,
+                                             sc.n_shards, n_local=nb)
+            # Health mask and knobs are operands of the one warmed step:
+            # failover and ladder rungs never rebuild it.
+            warm = run(self.corpus_embs, self.corpus_mask, self._tensor(q),
+                       self._tensor(cand_l), self._tensor(a_l),
+                       self._tensor(b_l), sc.valid_docs, 0,
+                       self.shard_health(), 1.0, 1)
+        elif key[0] == "step":
             _, flavor, tb, nb = key
             step = make_serving_step(flavor, engine=cfg.bandit_engine,
                                      draws=draws, **step_kw)
@@ -578,8 +683,27 @@ class RetrievalEngine:
             warm = run(self.corpus_embs, self.corpus_mask, self._tensor(q),
                        self._tensor(cand), self._tensor(a), self._tensor(b),
                        0, 1.0, 1)
+        elif key[0] == "routed":
+            # Routed step: route + shard-local stage 1 + rerank + merge, one
+            # step per (flavor, token bucket); the candidate bucket is
+            # pinned to the stage-1 width.
+            _, flavor, tb = key
+            sc = self.sharded
+            run = make_routed_serving_step(
+                sc.mesh, flavor, n_local=self._stage1_n,
+                n_total=cfg.stage1_total, kprime=cfg.stage1_kprime,
+                support=cfg.support, prereveal_ann=cfg.prereveal_ann,
+                engine=cfg.bandit_engine, base_seed=cfg.seed, draws=draws,
+                **step_kw)
+            warm = run(self.corpus_embs, self.corpus_mask,
+                       *self._router_args,
+                       self._tensor(self._warm_inputs(tb, 1)[0]),
+                       sc.valid_docs, 0, self.shard_health(), 1.0, 1)
         elif key[0] == "stream":
             _, tb, nb = key
+            if self.sharded is not None:
+                raise ValueError("continuous (slot-refill) serving is "
+                                 "single-device; unset mesh_axes")
             run = make_streaming_step(trip_limit=cfg.stream_trip_limit,
                                       draws=draws, **step_kw)
             q, cand, a, b = self._warm_inputs(tb, nb)
@@ -602,13 +726,24 @@ class RetrievalEngine:
                 cs = candidates_for(ce, cm, q, **kw)
                 return cs.doc_ids, cs.a, cs.b
 
-            warm = run(self.corpus_embs, self.corpus_mask,
+            warm = run(*self._stage1_operands(),
                        self._tensor(self._warm_inputs(tb, 1)[0]))
         else:
             raise KeyError(key)
         for x in warm:
             x.cpu()
         return run
+
+    def _stage1_operands(self):
+        """(embs, mask) stage 1 scans: the corpus, or on a mesh the whole
+        padded corpus gathered once (pad rows never become candidates)."""
+        if self.sharded is None:
+            return self.corpus_embs, self.corpus_mask
+        with self._exec_lock:
+            if self._stage1_corpus is None:
+                self._stage1_corpus = (self.corpus_embs.gather(),
+                                       self.corpus_mask.gather())
+            return self._stage1_corpus
 
     def warmup(self) -> List[tuple]:
         """Build and run once every bucket the policy can reach; after this
@@ -620,6 +755,11 @@ class RetrievalEngine:
                 # candidate-less requests at submit, so the bucket is
                 # unreachable there.
                 self._executable(("stage1", tb))
+            if self._routed:
+                # Candidate-less batches go to the routed step; the host
+                # stage-1 and step buckets serve mixed traffic.
+                self._executable(("routed", self.flavor_for(self._stage1_n),
+                                  tb))
             for nb in self.buckets.cand_buckets:
                 # flavor_for is a pure function of the bucket, so exactly
                 # one flavor is reachable per (tb, nb).
@@ -744,7 +884,7 @@ class RetrievalEngine:
         queries, as host numpy. Each query's candidates depend on it alone,
         so only the rows that need them are computed."""
         out = self._executable(("stage1", tb))(
-            self.corpus_embs, self.corpus_mask, self._tensor(queries))
+            *self._stage1_operands(), self._tensor(queries))
         return tuple(x.cpu().numpy() for x in out)
 
     def _prepare_batch(self, reqs: Sequence[Request], n_real: int,
@@ -756,6 +896,9 @@ class RetrievalEngine:
         tb = self.buckets.token_bucket(max(r.query.shape[0] for r in real))
         provided = [r.cand_ids for r in reqs]
         missing = [c is None for c in provided]
+        if self._routed and all(missing):
+            return self._prepare_batch_routed(reqs, real, n_real, tb,
+                                              t_release)
         n_need = max([len(c) for c in provided if c is not None], default=0)
         if any(missing):
             n_need = max(n_need, self._stage1_n)
@@ -780,11 +923,74 @@ class RetrievalEngine:
         ordinal = next(self._batch_seed)
         level = self._degrade_level(real, flavor)
         a_s, r_c = self._ladder.knobs(level)
-        args = (self.corpus_embs, self.corpus_mask, self._tensor(queries),
-                self._tensor(cand), self._tensor(a), self._tensor(b),
-                ordinal, a_s, r_c)
+        cov = None
+        if self.sharded is not None:
+            sc = self.sharded
+            hl = self.shard_health()
+            cov = self._candidate_coverage(cand, real, hl, sc.docs_per_shard)
+            # One placement computation for ids and payloads; dense never
+            # reads the bounds, so it gets zeros of the warmed shape.
+            payloads = () if flavor == "dense" else (a, b)
+            cand_l, routed = route_batch(cand, payloads, sc.docs_per_shard,
+                                         sc.n_shards, n_local=nb)
+            if flavor == "dense":
+                a_l = b_l = np.zeros((cand.shape[0], sc.n_shards, nb, tb),
+                                     np.float32)
+            else:
+                a_l, b_l = routed
+            args = (self.corpus_embs, self.corpus_mask,
+                    self._tensor(queries), self._tensor(cand_l),
+                    self._tensor(a_l), self._tensor(b_l), sc.valid_docs,
+                    ordinal, hl, a_s, r_c)
+        else:
+            args = (self.corpus_embs, self.corpus_mask,
+                    self._tensor(queries), self._tensor(cand),
+                    self._tensor(a), self._tensor(b), ordinal, a_s, r_c)
         return _Prepared(real, n_real, (tb, nb), flavor, exe, args,
-                         t_release, next(self._bid), level)
+                         t_release, next(self._bid), cov, level)
+
+    @staticmethod
+    def _candidate_coverage(cand: np.ndarray, real: Sequence[Request],
+                            healthy: np.ndarray,
+                            docs_per_shard: int) -> Optional[np.ndarray]:
+        """Per-request share of its real candidates on healthy shards: what
+        the merge searches once the failover mask drops the dead shards.
+        None (all 1.0) on a healthy mesh."""
+        if healthy.all():
+            return None
+        cov = np.ones((len(real),), np.float32)
+        for i in range(len(real)):
+            ids = cand[i][cand[i] >= 0]
+            if ids.size:
+                cov[i] = float(np.mean(healthy[ids // docs_per_shard]))
+        return cov
+
+    def _prepare_batch_routed(self, reqs: Sequence[Request],
+                              real: List[Request], n_real: int, tb: int,
+                              t_release: float) -> _Prepared:
+        """Candidate-less batches on a routed engine: no host stage 1, no
+        routing tables; queries in, scorecards out."""
+        nb = self._stage1_n
+        flavor = self.flavor_for(nb)
+        exe = self._executable(("routed", flavor, tb))
+        queries = pad_queries([r.query for r in reqs], tb)
+        ordinal = next(self._batch_seed)
+        level = self._degrade_level(real, flavor)
+        a_s, r_c = self._ladder.knobs(level)
+        hl = self.shard_health()
+        cov = None
+        if not hl.all():
+            # Candidates are chosen per shard: the searchable universe is
+            # the healthy shards' document mass.
+            vd = np.asarray(self.corpus.valid_docs, np.float64)
+            cov = np.full((len(real),),
+                          float(vd[hl].sum() / max(vd.sum(), 1.0)),
+                          np.float32)
+        args = (self.corpus_embs, self.corpus_mask, *self._router_args,
+                self._tensor(queries), self.corpus.valid_docs, ordinal, hl,
+                a_s, r_c)
+        return _Prepared(real, n_real, (tb, nb), flavor, exe, args,
+                         t_release, next(self._bid), cov, level)
 
     def _finish_batch(self, prep: _Prepared, out) -> List[Completion]:
         """Completion harvest: copies the step's outputs to the host (the
@@ -794,6 +1000,22 @@ class RetrievalEngine:
         bucket, flavor, t_release = prep.bucket, prep.flavor, prep.t_release
         scores, gids, frac, stats = (x.cpu().numpy() for x in out)
         t_done = self.clock()
+
+        shard_occ = shard_rounds = shard_quota = None
+        if stats.ndim == 2:        # sharded: per-shard diagnostic vectors
+            shard_occ = tuple(float(x) for x in stats[:, 0])
+            shard_rounds = tuple(float(x) for x in stats[:, 1])
+            if stats.shape[1] >= 5:   # routed step: quota-share columns
+                shard_quota = tuple(float(x) for x in stats[:, 3])
+            # occupancy over the shards that did frontier work
+            busy = stats[stats[:, 1] > 0]
+            agg = (float(np.mean(busy[:, 0])) if len(busy)
+                   else float(np.mean(stats[:, 0])),
+                   float(np.sum(stats[:, 1])), float(np.sum(stats[:, 2])))
+            quarantined = float(np.sum(stats[:, -1]))
+        else:
+            agg = (float(stats[0]), float(stats[1]), float(stats[2]))
+            quarantined = float(stats[3])
 
         service_s = t_done - t_release
         with self._state_lock:
@@ -805,10 +1027,13 @@ class RetrievalEngine:
             occupancy=n_real / cfg.batch_size,
             service_s=service_s,
             reveal_fraction=float(np.mean(frac[:n_real])),
-            frontier_occupancy=float(stats[0]),
-            total_rounds=float(stats[1]),
-            lockstep_waste=float(stats[2]),
-            quarantined=float(stats[3]),
+            frontier_occupancy=agg[0],
+            total_rounds=agg[1],
+            lockstep_waste=agg[2],
+            shard_occupancy=shard_occ,
+            shard_rounds=shard_rounds,
+            shard_quota_share=shard_quota,
+            quarantined=quarantined,
             degrade_level=prep.degrade_level)
 
         done: List[Completion] = []
@@ -825,7 +1050,9 @@ class RetrievalEngine:
                                and t_done > r.deadline_abs + 1e-9),
                 flavor=flavor, bucket=bucket,
                 reveal_fraction=float(frac[i]),
-                coverage=r.coverage_scale,
+                coverage=(float(prep.coverage[i])
+                          if prep.coverage is not None else 1.0)
+                * r.coverage_scale,
                 degrade_level=prep.degrade_level))
         self.metrics.record_batch(record, done)
         return done
@@ -872,6 +1099,8 @@ GUARDED_BY = {
     "_stream_q": "_work_cv",
     "_service_ema": "_state_lock",
     "_exec": "_exec_lock",
+    "_healthy": "_health_lock",
+    "_stage1_corpus": "_exec_lock",
     "_batcher": "internal",
     "_supervisor": "atomic",
     "_admit_holding": "ordered",

@@ -15,6 +15,7 @@ import torch
 from repro.data.synthetic import make_retrieval_dataset
 from repro.retrieval import corpus as jc
 from repro.retrieval.index import build_index
+from repro_torch.dist.mesh import make_mesh
 from repro_torch.retrieval import corpus as tc
 from repro_torch.retrieval.index import from_numpy
 from repro_torch.retrieval.service import gather_candidates
@@ -206,10 +207,12 @@ def test_gather_candidates_on_an_index_matches_jax_index_gather():
 
 def test_build_corpus_guards():
     ds = _dataset(10, n_docs=6)
-    with pytest.raises(NotImplementedError,
-                       match="sharded serving, which is not ported yet"):
-        tc.build_corpus(ds.doc_embs, ds.doc_mask, mesh=object(),
-                        device="cpu")
+    # A mesh now places the corpus (retrieval.sharded); 6 docs over 4
+    # shards pad to 8 rows with a ragged tail.
+    sharded = tc.build_corpus(ds.doc_embs, ds.doc_mask, mesh=make_mesh(
+        (4,), ("data",), device="cpu"), device="cpu")
+    assert (sharded.n_shards, sharded.docs_per_shard) == (4, 2)
+    np.testing.assert_array_equal(sharded.valid_docs, [2, 2, 2, 0])
     with pytest.raises(ValueError, match="unknown corpus format"):
         tc.build_corpus(ds.doc_embs, ds.doc_mask, corpus_format="fp4",
                         device="cpu")

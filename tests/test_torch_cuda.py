@@ -739,3 +739,130 @@ def test_async_engine_on_the_card_equals_sync(card):
             assert np.array_equal(got[rid].topk_ids, c.topk_ids)
             assert np.array_equal(got[rid].topk_scores, c.topk_scores)
         assert eng.metrics.compiles_after_warmup == 0
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: S = 4 shards on the one card
+# ---------------------------------------------------------------------------
+
+def _sharded_case(card, n_docs=203):
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.retrieval.sharded import route_batch, shard_corpus
+
+    ds = make_retrieval_dataset(n_docs=n_docs, n_queries=4, doc_len=48,
+                                min_doc_len=8, query_len=16, dim=64, seed=7)
+    mesh = make_mesh((2, 2), ("data", "model"), device=card)
+    embs = torch.as_tensor(ds.doc_embs, device=card)
+    mask = torch.as_tensor(ds.doc_mask, device=card)
+    q = torch.as_tensor(ds.queries, device=card)
+    cand = candidates_for(embs, mask, q, kprime=10, max_candidates=48,
+                          support=(0.0, 1.0))
+    sc = shard_corpus(embs, mask, mesh, n_centroids=4)
+    cl, (al, bl) = route_batch(cand.doc_ids.cpu().numpy(),
+                               (cand.a.cpu().numpy(), cand.b.cpu().numpy()),
+                               sc.docs_per_shard, 4)
+    routed = tuple(torch.as_tensor(x, device=card) for x in (cl, al, bl))
+    return ds, mesh, embs, mask, q, cand, sc, routed
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_sharded_steps_on_the_card_equal_single_device(card, fmt):
+    """A ragged 203-doc corpus over 4 shards of one card: the sharded
+    dense step returns the flat dense step's top-5 (ids exact, scores
+    within rtol/atol) with one maxsim launch per shard; the hard-bound
+    sharded bandit returns dense's id sets through the reveal kernel."""
+    from repro_torch.retrieval.service import make_sharded_serving_step
+    from repro_torch.retrieval.sharded import shard_corpus
+
+    ds, mesh, embs, mask, q, cand, sc, routed = _sharded_case(card)
+    if fmt == "int8":
+        sc = shard_corpus(embs, mask, mesh, corpus_format="int8")
+        flat = build_corpus(ds.doc_embs, ds.doc_mask, corpus_format="int8",
+                            device=card)
+        fe, fm = flat.embs, flat.mask
+    else:
+        fe, fm = embs, mask
+    q_ = "_q" if fmt == "int8" else ""
+    want = make_serving_step("dense", topk=5)(fe, fm, q, cand.doc_ids,
+                                              cand.a, cand.b, None)
+    _build.reset_launches()
+    got = make_sharded_serving_step(mesh, "dense", topk=5,
+                                    corpus_format=fmt)(
+        sc.embs, sc.mask, q, *routed, sc.valid_docs, 0)
+    assert _build.LAUNCHES["maxsim" + q_] == 4
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    _build.reset_launches()
+    hard = make_sharded_serving_step(mesh, "bandit", topk=5, alpha_ef=1e9,
+                                     corpus_format=fmt)(
+        sc.embs, sc.mask, q, *routed, sc.valid_docs, 0)
+    assert _build.LAUNCHES["fused_reveal" + q_] > 0
+    for r in range(4):
+        assert set(hard[1][r].tolist()) == set(want[1][r].tolist())
+    assert hard[3].shape == (4, 4) and (hard[2] <= 1).all()
+
+
+def test_routed_on_the_card_equals_host_routed(card):
+    """Full coverage (k' = C * L, n_local >= c_loc): the routed step equals
+    the host-routed sharded step bit for bit on the card, dense and
+    bandit; with a failed shard no id of that shard comes back."""
+    from repro_torch.retrieval.service import (make_routed_serving_step,
+                                               make_sharded_serving_step)
+    from repro_torch.retrieval.sharded import route_batch
+
+    ds, mesh, embs, mask, q, _, sc, _ = _sharded_case(card)
+    kp = embs.shape[0] * embs.shape[1]
+    hc = candidates_for(embs, mask, q, kprime=kp, max_candidates=208,
+                        support=(0.0, 1.0))
+    cl, (al, bl) = route_batch(hc.doc_ids.cpu().numpy(),
+                               (hc.a.cpu().numpy(), hc.b.cpu().numpy()),
+                               sc.docs_per_shard, 4,
+                               n_local=sc.docs_per_shard)
+    routed = tuple(torch.as_tensor(x, device=card) for x in (cl, al, bl))
+    for flavor in ("dense", "bandit"):
+        host = make_sharded_serving_step(mesh, flavor, topk=5)(
+            sc.embs, sc.mask, q, *routed, sc.valid_docs, 0)
+        got = make_routed_serving_step(
+            mesh, flavor, topk=5, n_local=sc.docs_per_shard, n_total=0,
+            kprime=kp)(sc.embs, sc.mask, sc.router.centroids,
+                       sc.router.shard_mass, q, sc.valid_docs, 0)
+        for x, y in zip(got[:3], host[:3]):
+            assert torch.equal(x, y), flavor
+    down = make_routed_serving_step(mesh, "bandit", topk=5, n_local=32,
+                                    n_total=48, kprime=10)(
+        sc.embs, sc.mask, sc.router.centroids, sc.router.shard_mass, q,
+        sc.valid_docs, 0, np.array([True, True, False, True]))
+    ids = down[1].cpu().numpy()
+    d = sc.docs_per_shard
+    assert not ((ids >= 2 * d) & (ids < 3 * d)).any()
+
+
+def test_mesh_engine_on_the_card_fails_over(card):
+    """The engine on a (2, 2) mesh of one card: zero rebuilds after warmup
+    across a failover and a restore; no completion holds a doc of the
+    failed shard; the restored results equal the first pass (dense)."""
+    ds = make_retrieval_dataset(n_docs=203, n_queries=4, doc_len=48,
+                                min_doc_len=8, query_len=16, dim=64, seed=7)
+    cfg = EngineConfig(batch_size=4, deadline_s=30.0, token_buckets=(16,),
+                       cand_buckets=(32,), max_k=5, flavor="dense",
+                       stage1_candidates=32,
+                       mesh_axes=(("data", 2), ("model", 2)))
+    eng = RetrievalEngine(ds.doc_embs, ds.doc_mask, cfg, device=card)
+    eng.warmup()
+    reqs = [Request(query=ds.queries[i], k=5,
+                    cand_ids=np.arange(32) * 6 % 203) for i in range(4)]
+    first = _serve(eng, reqs)
+    eng.fail_shard(2)
+    down = _serve(eng, reqs)
+    d = eng.corpus.docs_per_shard
+    for c in down.values():
+        assert not ((c.topk_ids >= 2 * d) & (c.topk_ids < 3 * d)).any()
+        assert c.coverage < 1.0
+    eng.restore_shard(2)
+    back = _serve(eng, reqs)
+    for (r0, c0), c1 in zip(sorted(first.items()),
+                            [back[r] for r in sorted(back)]):
+        assert np.array_equal(c0.topk_ids, c1.topk_ids)
+        assert np.array_equal(c0.topk_scores, c1.topk_scores)
+    assert eng.metrics.compiles_after_warmup == 0
+    assert eng.metrics.summary()["failovers"] == 1

@@ -282,6 +282,12 @@ def test_engine_serves_bf16_corpus_matching_f32_topk(corpus):
     dict(audit=True),
 ], ids=["mesh", "routed", "autotune", "tuning_table", "audit"])
 def test_settings_not_ported_raise(corpus, setting):
+    if "mesh_axes" in setting:
+        # Ported: the mesh-resident corpus and routed stage 1 build (their
+        # parity tests are tests/test_torch_{sharded,routed}.py).
+        eng = _engine(corpus, _dense_cfg(**setting))
+        assert eng.corpus.n_shards == 2 and eng.shard_health().all()
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         _engine(corpus, _dense_cfg(**setting))
 
