@@ -59,7 +59,12 @@ Phases, in order:
      single-device results, routed stage 1 held to the host-routed step
      bit for bit on a slab and run at full size, and the engine on the
      mesh with a shard failover, each completion held to the sharded or
-     routed step bit for bit (see ``sharded_serving``).
+     routed step bit for bit (see ``sharded_serving``);
+ 11. launch-shape tuning and the serving-contract audit: every candidate
+     launch shape timed at the serving buckets, an autotuned engine held
+     to an untuned one bit for bit and its table reloaded, ``audit=True``
+     engines (f32, int8, the S = 4 mesh, routed) with their reports, and
+     a host copy in a step failing the audit (see ``tuning_and_audit``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -948,6 +953,225 @@ def sharded_serving(dev, index, ds, cand, dense4, dense_int8, step_ms5,
           f"{s['routed_skew']:.4f}; compiles_after_warmup "
           f"{s['compiles_after_warmup']}; launches {counts}", flush=True)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return served
+
+
+def tuning_and_audit(dev, index, ds, cand, smi, t_start):
+    """11. Launch-shape tuning and the serving-contract audit on the card,
+    on phase 4's corpus, queries and stage-1 candidates with phase 9's
+    ``EngineConfig`` (and phase 10's S = 4 mesh).
+
+    (a) ``ops.autotune_op`` at each serving bucket, f32 and int8:
+        ``maxsim_batch`` (B = 16, N = 64, T = 32) and ``fused_reveal`` /
+        ``gather_maxsim`` (128 frontier rows, G = 8, D = 4,096, TQ = 512):
+        each candidate's device ms (CUDA events behind a spin kernel, best
+        of 10), the winner and the default's ms, in two passes in turns;
+    (b) ``EngineConfig(autotune=True, tuning_table=<temp file>)``: the
+        engine times its own buckets, serves phase 9's 48 requests, and
+        every completion equals an untuned engine's bit for bit; a second
+        engine loads the table and times 0 buckets;
+    (c) ``audit=True`` engines pass their warmup: f32 (the untuned engine
+        of (b)), int8, and the S = 4 mesh with ``stage1="host"`` and
+        ``"local"``; each bucket's report is printed (host reads per site
+        and per trip, logical cross-shard bytes against the budget, peak
+        against the bound);
+    (d) a step that copies its output to the host (``.cpu()``) fails the
+        audit with ``hlo-host-sync``.
+
+    Returns the kernels' launches in (b)'s served run."""
+    import collections
+    import os
+    import tempfile
+
+    from repro_torch.analysis.audit import AuditError
+    from repro_torch.kernels import _build, ops, tuning
+    from repro_torch.kernels.gather_maxsim import reveal_block_l
+    from repro_torch.serve import EngineConfig, Request, RetrievalEngine
+
+    t_phase = time.perf_counter()
+    nq, T, M = ds.queries.shape
+    L = index.doc_embs.shape[1]
+    served = collections.Counter()
+    cfg = EngineConfig(batch_size=nq, deadline_s=30.0, token_buckets=(T,),
+                       cand_buckets=(64, MAX_CANDIDATES), max_k=K,
+                       flavor="auto", bandit_min_candidates=MAX_CANDIDATES,
+                       stage1_candidates=MAX_CANDIDATES, stage1_kprime=10,
+                       seed=SEED)
+    ids = [r[r >= 0] for r in cand.doc_ids.cpu().numpy()]
+    requests = ([Request(query=ds.queries[i], k=K, cand_ids=ids[i])
+                 for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K, cand_ids=ids[i][:64])
+                   for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K) for i in range(nq)])
+
+    def sync_dev():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # (a) autotune_op per serving bucket ---------------------------------
+    rows = nq * 2 * (cfg.block_docs // 2)
+    reveal = dict(B=rows, G=cfg.block_tokens, L=L, M=M,
+                  D=nq * MAX_CANDIDATES, TQ=nq * T)
+    tuned = {}
+    tuning.clear()
+    for rnd in (1, 2):                    # two passes in turns: stability
+        for fmt, f in (("f32", {}), ("int8", {"FMT": 2})):
+            for op, dims in (("maxsim_batch",
+                              dict(B=nq, N=64, T=T, L=L, M=M)),
+                             ("fused_reveal", reveal),
+                             ("gather_maxsim", reveal)):
+                dims = dict(dims, **f)
+                best, times = ops.autotune_op(op, dims, repeats=10,
+                                              device=dev)
+                ms = {json.loads(k)[next(iter(json.loads(k)))]: v * 1e3
+                      for k, v in times.items()}
+                knob = next(iter(tuning.DEFAULTS[op]))
+                default = tuning.DEFAULTS[op][knob]
+                if knob == "block_l":      # 0: the rule by frontier rows
+                    default = reveal_block_l(dims["B"], default)
+                if dev.type == "cuda" and (tuning.lookup(op, dims) != best
+                                           or not ms):
+                    fail(f"phase 11a {op} {fmt}: winner {best} not "
+                         "recorded")
+                row = tuned.setdefault((op, fmt), dict(default=default))
+                row[f"ms{rnd}"], row[f"winner{rnd}"] = ms, best.get(knob)
+                print(f"phase 11a pass {rnd} {op} {fmt} {dims}: {knob} "
+                      f"candidates device ms {ms}; winner {best}; default "
+                      f"({knob} {default}) "
+                      f"{ms.get(default, float('nan')):.4f} ms; {smi}",
+                      flush=True)
+    same = [k for k, v in tuned.items() if v["winner1"] == v["winner2"]]
+    print(f"phase 11a: the two passes pick the same winner in {len(same)} "
+          f"of {len(tuned)} buckets", flush=True)
+    summary = {f"{o} {f}": v for (o, f), v in tuned.items()}
+    print(f"phase 11a json {json.dumps(summary)}", flush=True)
+    tuning.clear()
+
+    # (b) an autotuned engine == an untuned one; the table reloads --------
+    def serve(eng, reqs, tally=False):
+        _build.reset_launches()
+        sync_dev()
+        t = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.drain()
+        sync_dev()
+        secs = time.perf_counter() - t
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if tally:
+            served.update(counts)
+        got = {c.rid: c for c in done}
+        if len(got) != len(done) or len(done) != len(reqs) \
+                or eng.metrics.compiles_after_warmup:
+            fail(f"phase 11: {len(done)} completions for {len(reqs)}, "
+                 f"{eng.metrics.compiles_after_warmup} builds after warmup")
+        return got, secs, counts
+
+    def report(label, eng):
+        for key, r in sorted(eng.audit_reports.items()):
+            spec = eng._audit_spec(key)
+            reads = sum(r.host_reads.values())
+            per = f"{reads / r.trips:.3f}" if r.trips else "-"
+            print(f"phase 11c {label} {key}: host reads {r.host_reads} over "
+                  f"{r.trips} trips ({per} a trip), collective "
+                  f"{r.collective_total} B of budget "
+                  f"{spec.collective_budget}, peak {r.peak_bytes:.0f} B of "
+                  f"bound {spec.peak_bytes} ({r.ops} ops)", flush=True)
+
+    t = time.perf_counter()
+    plain = RetrievalEngine(index.doc_embs, index.doc_mask,
+                            dataclasses.replace(cfg, audit=True), device=dev)
+    plain.warmup()
+    print(f"phase 11c f32 engine built, warmed and audited in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    report("f32", plain)
+    want, _, _ = serve(plain, requests)
+    table = os.path.join(tempfile.mkdtemp(), "tuning.json")
+    t = time.perf_counter()
+    eng = RetrievalEngine(index.doc_embs, index.doc_mask,
+                          dataclasses.replace(cfg, autotune=True,
+                                              tuning_table=table),
+                          device=dev)
+    eng.warmup()
+    m = eng.metrics
+    entries = tuning.table_json()
+    print(f"phase 11b autotuned engine built in {time.perf_counter() - t:.1f}"
+          f" s: {m.autotune_buckets} buckets timed in "
+          f"{m.autotune_s * 1e3:.1f} ms, table {entries}", flush=True)
+    got, secs, counts = serve(eng, requests, tally=True)
+    bad = [r for r in want if not (
+        np.array_equal(got[r].topk_ids, want[r].topk_ids)
+        and np.array_equal(got[r].topk_scores, want[r].topk_scores)
+        and got[r].reveal_fraction == want[r].reveal_fraction)]
+    if bad or not (counts.get("maxsim") and counts.get("fused_reveal")):
+        fail(f"phase 11b: rids {bad} differ from the untuned engine; "
+             f"launches {counts}")
+    if dev.type == "cuda" and m.autotune_buckets != len(eng._autotune_dims()):
+        fail(f"phase 11b: {m.autotune_buckets} buckets timed")
+    tuning.clear()
+    again = RetrievalEngine(index.doc_embs, index.doc_mask,
+                            dataclasses.replace(cfg, autotune=True,
+                                                tuning_table=table),
+                            device=dev)
+    again.warmup()
+    rows_saved = len(json.load(open(table)))
+    # (On the CPU the ops ignore launch shapes and nothing is recorded.)
+    if dev.type == "cuda" and (
+            again.metrics.autotune_buckets or rows_saved == 0
+            or again.metrics.tuning_entries_loaded != rows_saved):
+        fail(f"phase 11b: the second engine timed "
+             f"{again.metrics.autotune_buckets} buckets and loaded "
+             f"{again.metrics.tuning_entries_loaded} of {rows_saved} rows")
+    print(f"phase 11b: {len(got)} requests in {secs * 1e3:.1f} ms, every "
+          f"completion == the untuned engine's bit for bit; launches "
+          f"{counts}; a second engine loaded {rows_saved} rows and timed 0 "
+          f"buckets; {smi}", flush=True)
+    tuning.clear()
+
+    # (c) audit=True engines: int8, the S = 4 mesh, routed ----------------
+    axes = (("data", 2), ("model", 2))
+    for label, kw in (("int8", dict(corpus_format="int8")),
+                      ("mesh S=4", dict(mesh_axes=axes)),
+                      ("mesh S=4 local", dict(mesh_axes=axes,
+                                              stage1="local"))):
+        t = time.perf_counter()
+        e = RetrievalEngine(index.doc_embs, index.doc_mask,
+                            dataclasses.replace(cfg, audit=True, **kw),
+                            device=dev)
+        e.warmup()
+        print(f"phase 11c {label} engine built, warmed and audited in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        report(label, e)
+        meshed = {k: r for k, r in e.audit_reports.items()
+                  if k[0] in ("step", "routed") and "mesh_axes" in kw}
+        if "mesh_axes" in kw and not all(
+                0 < r.collective_total <= e._audit_spec(k).collective_budget
+                for k, r in meshed.items()):
+            fail(f"phase 11c {label}: cross-shard bytes outside (0, budget]")
+        del e
+
+    # (d) a host copy inside a step fails the audit -----------------------
+    key = ("step", "dense", T, 64)
+    real = plain._exec[key]
+
+    def leaky(*args):
+        out = real(*args)
+        out[0].cpu()
+        return out
+    plain._exec[key] = leaky
+    try:
+        plain.audit()
+    except AuditError as err:
+        if err.rule != "hlo-host-sync" or repr(key) not in str(err):
+            fail(f"phase 11d: wrong audit failure {err}")
+        print(f"phase 11d: a step with .cpu() fails the audit: "
+              f"{str(err).splitlines()[0]} | {err.lines[0]}", flush=True)
+    else:
+        if dev.type == "cuda":
+            fail("phase 11d: a .cpu() inside a step passed the audit")
+    plain._exec[key] = real
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; elapsed "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     return served
 
@@ -2171,6 +2395,14 @@ def main() -> int:
                   "fused_reveal_q"):
         if not served.get(kname):
             fail(f"phase 10: {kname} never launched on the sharded paths")
+    for kname, n in served.items():
+        records[kname]["launches"] += n
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 11. launch-shape tuning and the serving-contract audit ----------------
+    served = tuning_and_audit(torch.device("cuda"), index, ds, cand, smi,
+                              t_start)
+    print(f"phase 11: launches in the served run {dict(served)}",
+          flush=True)
     for kname, n in served.items():
         records[kname]["launches"] += n
     print(f"elapsed {time.perf_counter() - t_start:.1f} s (end)", flush=True)

@@ -81,10 +81,12 @@ def serfling_radius(
     nf = torch.clamp(n.to(_F32), min=1.0)
     log_term = torch.log(_f32(c) * _f32(N) / _f32(delta))
     # alpha_ef as a 0-d float32 tensor: a per-call fidelity knob stays on
-    # its device, so there is no host read.
+    # its device, so there is no host read. log_term stays a 0-d tensor
+    # too (2 log / n as reciprocal(n) * (2 log), the rounding of a Python
+    # scalar's ``2 log / n``), so a trip reads no scalar back.
     alpha = torch.as_tensor(alpha_ef, dtype=_F32)
     r = (alpha * _f32(T) * sigma
-         * torch.sqrt(2.0 * float(log_term) / nf)
+         * torch.sqrt(nf.reciprocal() * (2.0 * log_term))
          * torch.sqrt(torch.clamp(rho_n(n, T), min=0.0)))
     if bias_kappa > 0.0:
         bias = (alpha * _f32(bias_kappa) * _f32(T)

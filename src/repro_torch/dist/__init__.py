@@ -5,9 +5,10 @@ from repro_torch.dist.fault import (ChaosClock, ChaosKill, DeadlineBatcher,
                                     FaultPlan, InjectedFault, apply_delay,
                                     poison_corpus, reshard)
 from repro_torch.dist.mesh import (Mesh, Sharded, corpus_axes, corpus_specs,
-                                   make_host_mesh, make_mesh, place)
+                                   make_host_mesh, make_mesh, mesh_devices,
+                                   place)
 
 __all__ = ["ChaosClock", "ChaosKill", "DeadlineBatcher", "FaultPlan",
            "InjectedFault", "apply_delay", "poison_corpus", "reshard",
            "Mesh", "Sharded", "corpus_axes", "corpus_specs",
-           "make_host_mesh", "make_mesh", "place"]
+           "make_host_mesh", "make_mesh", "mesh_devices", "place"]

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis.audit import nbytes, note_collective
 from repro_torch.kernels.quant import QuantTokens
 
 
@@ -70,17 +71,30 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
     return Mesh(axis_names, dict(zip(axis_names, shape)), devs)
 
 
+def mesh_devices(n_shards: int, device="cuda") -> Tuple[torch.device, ...]:
+    """One device per shard, as ``jax.make_mesh`` places a mesh: on CUDA,
+    shard ``i`` on ``cuda:i`` when the host has at least ``n_shards``
+    cards; with fewer cards (one card serving S shards) or off CUDA, every
+    shard on ``device``."""
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.device_count() >= n_shards:
+        return tuple(torch.device("cuda", i) for i in range(n_shards))
+    return (_device(device),) * n_shards
+
+
 def make_host_mesh(n_devices: int = 0, *, axes=("data", "model"),
                    device="cuda") -> Mesh:
-    """Small mesh of ``n_devices`` shards on ``device`` (default: one per
-    visible card, or 1 on the CPU), favouring the ``model`` axis as
-    ``repro.launch.mesh.make_host_mesh`` does."""
+    """Small mesh of ``n_devices`` shards (default: one per visible card,
+    or 1 on the CPU), favouring the ``model`` axis as
+    ``repro.launch.mesh.make_host_mesh`` does, placed by
+    :func:`mesh_devices`: one card per shard where there are enough."""
     n = n_devices or (torch.cuda.device_count()
                       if torch.device(device).type == "cuda" else 1)
+    shape = (n,)
     if len(axes) == 2:
         model = next(m for m in (8, 4, 2, 1) if n % m == 0)
-        return make_mesh((n // model, model), axes, device=device)
-    return make_mesh((n,), axes, device=device)
+        shape = (n // model, model)
+    return make_mesh(shape, axes, devices=mesh_devices(n, device))
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +150,13 @@ class Sharded:
 
     def gather(self):
         """The global value on the merge device (``all_gather``): ``whole``
-        where it exists, else the parts concatenated in shard order."""
+        where it exists, else the parts concatenated in shard order. Either
+        way the audit counts the bytes every shard contributes."""
+        if self.dim is not None:
+            note_collective("all-gather", sum(
+                nbytes(*[a for a in p if a is not None])
+                if isinstance(p, QuantTokens) else nbytes(p)
+                for p in self.parts))
         if self.whole is not None or self.dim is None:
             return self.parts[0] if self.whole is None else self.whole
         dev = self.mesh.devices[0]

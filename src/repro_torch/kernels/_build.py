@@ -44,27 +44,31 @@ _LL = ctypes.c_longlong
 _QUANT = [_P, _P, _P, _P, _I]
 # C signature of every entry point, by library: (name, argtypes), and
 # (name, argtypes, restype) where it returns other than an int status.
+# The reveal entry points end in (..., block_l, stream) and the dense maxsim
+# ones in (..., block_n, stream): the launch shape, a tunable argument
+# (kernels/tuning.py), which no cell's value depends on.
 _ENTRY_POINTS = {
     "reveal.cu": (
-        ("colbandit_reveal_smem_bytes", [_I, _I, _I, _I, _I, _I, _I], _LL),
+        ("colbandit_reveal_smem_bytes", [_I, _I, _I, _I, _I, _I, _I, _I],
+         _LL),
         ("colbandit_fused_reveal",
          [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I,
-          _P]),
+          _I, _P]),
         ("colbandit_gather_maxsim",
-         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P]),
+         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P]),
         ("colbandit_fused_reveal_q",
          _QUANT + [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
-                   _I, _P]),
+                   _I, _I, _P]),
         ("colbandit_gather_maxsim_q",
-         _QUANT + [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I,
+         _QUANT + [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _I,
                    _P]),
     ),
     "maxsim.cu": (
-        ("colbandit_maxsim_smem_bytes", [_I, _I, _I, _I, _I], _LL),
+        ("colbandit_maxsim_smem_bytes", [_I, _I, _I, _I, _I, _I], _LL),
         ("colbandit_maxsim",
-         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         ("colbandit_maxsim_q",
-         _QUANT + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+         _QUANT + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         ("colbandit_masked_maxsim",
          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         ("colbandit_masked_maxsim_q",

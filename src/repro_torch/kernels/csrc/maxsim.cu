@@ -28,7 +28,9 @@
 //
 // The body (dense::maxsim_body). A block of 128 threads takes kDocs
 // consecutive docs of one query b, grid (ceil(N / kDocs), B), so the
-// (B, N, L, T) similarity tensor never exists.
+// (B, N, L, T) similarity tensor never exists. kDocs is a template
+// parameter: the dense entry points take it as block_n (1, 2 or 4; 2 by
+// default), the masked ones run at kMaskedDocs = 2.
 //  1. Each warp compacts the valid tokens of one of the block's docs into a
 //     list in shared memory (a ballot per 32 mask bytes), so masked tokens
 //     are neither read nor computed; an all-masked doc writes -3e38 at once.
@@ -133,7 +135,11 @@ namespace dense {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 3;            // register budget (launch bounds)
-constexpr int kDocs = 2;                 // docs per block
+constexpr int kMaskedDocs = 2;           // docs per block, masked kernel
+// Docs per block the dense kernel is built for (its block_n).
+__host__ __device__ constexpr bool dense_docs_ok(int docs) {
+  return docs == 1 || docs == 2 || docs == 4;
+}
 constexpr int kChunk = 64;               // valid tokens per staged chunk
 constexpr int kPassT = 32;               // query rows per pass
 constexpr int kHalves = kWarps / 2;      // row halves tb; query halves qh = 2
@@ -149,9 +155,10 @@ struct Layout {
 };
 
 // esz: bytes of one stored row element (4: f32 rows, computed where they
-// land); scaled: rows carry a scale; Kc: codebook rows (0 without one).
+// land); scaled: rows carry a scale; Kc: codebook rows (0 without one);
+// kDocs: docs per block.
 __host__ __device__ inline Layout layout(int L, int M, int esz, bool scaled,
-                                         int Kc) {
+                                         int Kc, int kDocs) {
   Layout o;
   const bool direct = esz == 4;
   o.ts = (M + 31) / 32 * 32 + 4;
@@ -396,7 +403,7 @@ struct Cursor {
   }
 };
 
-template <typename Rows, typename TQ, bool kTiles>
+template <typename Rows, typename TQ, bool kTiles, int kDocs>
 __device__ __forceinline__ void maxsim_body(
     Rows rows, const uint8_t* __restrict__ mask, const TQ* __restrict__ Qb,
     float* __restrict__ H, int N, int L, int M, int T, int Kc, int gran,
@@ -404,7 +411,7 @@ __device__ __forceinline__ void maxsim_body(
   using Elem = typename Rows::Elem;
   constexpr bool kDirect = std::is_same<Elem, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout o = layout(L, M, sizeof(Elem), Rows::kScaled, Kc);
+  const Layout o = layout(L, M, sizeof(Elem), Rows::kScaled, Kc, kDocs);
   float* q_s = reinterpret_cast<float*>(smem + o.q);
   unsigned char* buf = smem + o.buf;
   float* tile = reinterpret_cast<float*>(smem + o.tile);
@@ -568,13 +575,13 @@ __device__ __forceinline__ void maxsim_body(
 // masked_maxsim<DenseRows or <QuantRows, which is what chip_smoke.py's
 // profiles look for. Both take the same arguments; maxsim_kernel ignores
 // the tile mask.
-template <typename Rows, typename TQ>
+template <typename Rows, typename TQ, int kDocs>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
               int M, int T, int Kc, int gran, TileMask) {
-  maxsim_body<Rows, TQ, false>(rows, mask, Qb, H, N, L, M, T, Kc, gran,
-                               TileMask{});
+  maxsim_body<Rows, TQ, false, kDocs>(rows, mask, Qb, H, N, L, M, T, Kc,
+                                      gran, TileMask{});
 }
 
 template <typename Rows, typename TQ>
@@ -582,8 +589,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 masked_maxsim(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
               int M, int T, int Kc, int gran, TileMask tiles) {
-  maxsim_body<Rows, TQ, true>(rows, mask, Qb, H, N, L, M, T, Kc, gran,
-                              tiles);
+  maxsim_body<Rows, TQ, true, kMaskedDocs>(rows, mask, Qb, H, N, L, M, T, Kc,
+                                           gran, tiles);
 }
 
 }  // namespace dense
@@ -594,24 +601,41 @@ struct Args {
   float* H;
   int B, N, L, M, T;
   TileMask tiles;  // tiles.m == nullptr: the dense kernel
+  int docs;        // docs per block (block_n)
   cudaStream_t stream;
 };
 
-template <typename Rows, typename TQ>
-int launch(const Rows& rows, const Args& a) {
+template <int kDocs, typename Rows, typename TQ>
+int launch_docs(const Rows& rows, const Args& a) {
   using Elem = typename Rows::Elem;
   const int kc = codebook_rows(rows);
   const size_t smem =
-      dense::layout(a.L, a.M, sizeof(Elem), Rows::kScaled, kc).total;
+      dense::layout(a.L, a.M, sizeof(Elem), Rows::kScaled, kc, kDocs).total;
   auto kernel = a.tiles.m ? &dense::masked_maxsim<Rows, TQ>
-                          : &dense::maxsim_kernel<Rows, TQ>;
+                          : &dense::maxsim_kernel<Rows, TQ, kDocs>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.N + dense::kDocs - 1) / dense::kDocs, a.B);
+  const dim3 grid((a.N + kDocs - 1) / kDocs, a.B);
   kernel<<<grid, dense::kThreads, smem, a.stream>>>(
       rows, a.mask, static_cast<const TQ*>(a.Q), a.H, a.N, a.L, a.M, a.T, kc,
       copy_granularity(rows.raw(0), a.M * (int)sizeof(Elem)), a.tiles);
   return (int)cudaGetLastError();
+}
+
+// The masked kernel is built for kMaskedDocs alone; the dense one for each
+// block_n of dense_docs_ok.
+template <typename Rows, typename TQ>
+int launch(const Rows& rows, const Args& a) {
+  if (a.tiles.m) {
+    if (a.docs != dense::kMaskedDocs) return (int)cudaErrorInvalidValue;
+    return launch_docs<dense::kMaskedDocs, Rows, TQ>(rows, a);
+  }
+  switch (a.docs) {
+    case 1: return launch_docs<1, Rows, TQ>(rows, a);
+    case 2: return launch_docs<2, Rows, TQ>(rows, a);
+    case 4: return launch_docs<4, Rows, TQ>(rows, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename Rows>
@@ -632,8 +656,8 @@ int quant_scales(const int8_t* data, const void* scales, const int32_t* codes,
 }
 
 Args dense_args(const uint8_t* mask, const void* Q, float* H, int B, int N,
-                int L, int M, int T, void* stream) {
-  return Args{mask, Q, H, B, N, L, M, T, TileMask{nullptr, 1, 1, 0},
+                int L, int M, int T, int block_n, void* stream) {
+  return Args{mask, Q, H, B, N, L, M, T, TileMask{nullptr, 1, 1, 0}, block_n,
               static_cast<cudaStream_t>(stream)};
 }
 
@@ -643,7 +667,7 @@ Args masked_args(const uint8_t* mask, const void* Q, const uint8_t* tile_mask,
                  void* stream) {
   return Args{mask, Q, H, 1, N, L, M, T,
               TileMask{tile_mask, bn, bt, (T + bt - 1) / bt},
-              static_cast<cudaStream_t>(stream)};
+              dense::kMaskedDocs, static_cast<cudaStream_t>(stream)};
 }
 
 int dense_corpus(const void* E, const Args& a, int e_bf16, int q_bf16) {
@@ -665,19 +689,25 @@ int quant_corpus(const int8_t* data, const void* scales, const int32_t* codes,
 
 }  // namespace
 
-// Bytes of shared memory one block of any entry point takes for docs
-// of L tokens of M elements of elem_bytes bytes (4 f32, 2 bf16, 1 int8),
-// scaled rows (the _q entry point) and Kc codebook rows (0 without one).
+// Bytes of shared memory one block of a dense entry point launched at
+// block_n docs per block takes (the masked ones: block_n = 2) for docs of L
+// tokens of M elements of elem_bytes bytes (4 f32, 2 bf16, 1 int8), scaled
+// rows (the _q entry points) and Kc codebook rows (0 without one); -1
+// where block_n is not one the dense kernel is built for.
 extern "C" long long colbandit_maxsim_smem_bytes(int L, int M, int elem_bytes,
-                                                 int scaled, int Kc) {
-  return (long long)dense::layout(L, M, elem_bytes, scaled != 0, Kc).total;
+                                                 int scaled, int Kc,
+                                                 int block_n) {
+  if (!dense::dense_docs_ok(block_n)) return -1;
+  return (long long)dense::layout(L, M, elem_bytes, scaled != 0, Kc, block_n)
+      .total;
 }
 
 extern "C" int colbandit_maxsim(const void* E, const uint8_t* mask,
                                 const void* Q, float* H, int B, int N, int L,
                                 int M, int T, int e_bf16, int q_bf16,
-                                void* stream) {
-  return dense_corpus(E, dense_args(mask, Q, H, B, N, L, M, T, stream),
+                                int block_n, void* stream) {
+  return dense_corpus(E,
+                      dense_args(mask, Q, H, B, N, L, M, T, block_n, stream),
                       e_bf16, q_bf16);
 }
 
@@ -687,10 +717,11 @@ extern "C" int colbandit_maxsim_q(const int8_t* data, const void* scales,
                                   const int32_t* codes, const float* codebook,
                                   int Kc, const uint8_t* mask, const void* Q,
                                   float* H, int B, int N, int L, int M, int T,
-                                  int s_bf16, int q_bf16, void* stream) {
+                                  int s_bf16, int q_bf16, int block_n,
+                                  void* stream) {
   return quant_corpus(data, scales, codes, codebook, Kc,
-                      dense_args(mask, Q, H, B, N, L, M, T, stream), s_bf16,
-                      q_bf16);
+                      dense_args(mask, Q, H, B, N, L, M, T, block_n, stream),
+                      s_bf16, q_bf16);
 }
 
 extern "C" int colbandit_masked_maxsim(const void* E, const uint8_t* mask,

@@ -24,8 +24,9 @@
 // is latency: F = 128 rows give one block per SM, so each block must get
 // its whole doc in flight at once, and a cell is a 128-deep FMA chain.
 //
-// Design. One block per frontier row f (256 threads, or 128 for a launch
-// of more than 512 rows: Shape below) reads its own doc_idx[f] (the TPU
+// Design. One block per frontier row f (256 threads, or 128 at block_l =
+// 32, the default for a launch of more than 512 rows: Shape below; the
+// cells do not depend on it) reads its own doc_idx[f] (the TPU
 // kernel's scalar prefetch), so no (F, L, M) gathered copy ever reaches
 // device memory. Its tok_idx and new_mask rows are read beside doc_idx,
 // so no dependent load waits on them later.
@@ -97,14 +98,23 @@ struct Shape {
 // Many rows (the init reveal: F = 4096) are better served by more, smaller
 // blocks per SM, each waiting on its own doc: 128 threads, 32 tokens.
 // Both keep a thread to 80 registers: 3 and 6 blocks fit per SM.
+// The shape is a launch argument, block_l (valid tokens per staged chunk):
+// 64 takes Wide, 32 Narrow, and 0 the rule by F below.
 using Wide = Shape<256, 64, 2, 3>;
 using Narrow = Shape<128, 32, 2, 6>;
-constexpr int kNarrowRows = 512;  // F above this takes Narrow
+constexpr int kNarrowRows = 512;  // block_l 0: F above this takes Narrow
 
-// fn(Shape{}) with the shape a launch of F frontier rows takes.
+// The block_l a launch of F frontier rows runs at: block_l itself, or for 0
+// the rule by F; 0 where block_l names no shape.
+__host__ inline int resolve_block_l(int F, int block_l) {
+  if (block_l == 0) return F > kNarrowRows ? Narrow::kChunk : Wide::kChunk;
+  return block_l == Wide::kChunk || block_l == Narrow::kChunk ? block_l : 0;
+}
+
+// fn(Shape{}) with the shape of a resolved block_l (64 or 32).
 template <typename Fn>
-__host__ auto by_shape(int F, Fn fn) {
-  return F > kNarrowRows ? fn(Narrow{}) : fn(Wide{});
+__host__ auto by_shape(int block_l, Fn fn) {
+  return block_l == Narrow::kChunk ? fn(Narrow{}) : fn(Wide{});
 }
 
 __host__ __device__ constexpr size_t align16(size_t x) {
@@ -428,6 +438,7 @@ struct Args {
   float* stats;
   int F, G, L, M;
   long long D, n_tok;
+  int block_l;  // as given: 64, 32, or 0 for the rule by F
   cudaStream_t stream;
 };
 
@@ -467,8 +478,9 @@ int launch_shape(const Rows& rows, const Args& a) {
 
 template <typename Rows, typename TQ, bool kStats>
 int launch(const Rows& rows, const Args& a) {
-  if (a.G < 0 || a.G > kMaxG) return (int)cudaErrorInvalidValue;
-  return by_shape(a.F, [&](auto shape) {
+  const int bl = resolve_block_l(a.F, a.block_l);
+  if (a.G < 0 || a.G > kMaxG || bl == 0) return (int)cudaErrorInvalidValue;
+  return by_shape(bl, [&](auto shape) {
     return launch_shape<decltype(shape), Rows, TQ, kStats>(rows, a);
   });
 }
@@ -512,16 +524,19 @@ int quant(const int8_t* data, const void* scales, const int32_t* codes,
 
 }  // namespace
 
-// Bytes of shared memory one block of a launch of F frontier rows takes
-// for G query rows per frontier row, docs of L tokens of M elements of
-// elem_bytes bytes (4 f32, 2 bf16, 1 int8), scaled rows (the _q entry
-// points) and Kc codebook rows (0 without one); -1 where G is beyond the
-// kernel's 64.
+// Bytes of shared memory one block of a launch of F frontier rows at
+// block_l (as the entry points take it) takes for G query rows per
+// frontier row, docs of L tokens of M elements of elem_bytes bytes (4 f32,
+// 2 bf16, 1 int8), scaled rows (the _q entry points) and Kc codebook rows
+// (0 without one); -1 where G is beyond the kernel's 64, -2 where block_l
+// names no shape.
 extern "C" long long colbandit_reveal_smem_bytes(int F, int G, int L, int M,
                                                  int elem_bytes, int scaled,
-                                                 int Kc) {
+                                                 int Kc, int block_l) {
   if (G < 0 || G > kMaxG) return -1;
-  return by_shape(F, [&](auto shape) {
+  const int bl = resolve_block_l(F, block_l);
+  if (bl == 0) return -2;
+  return by_shape(bl, [&](auto shape) {
     return (long long)layout<decltype(shape)>(G, L, M, elem_bytes,
                                               scaled != 0, Kc)
         .total;
@@ -534,9 +549,9 @@ extern "C" int colbandit_fused_reveal(const void* E, const uint8_t* mask,
                                       const uint8_t* new_mask, float* vals,
                                       float* stats, int F, int G, int L, int M,
                                       long long D, long long n_tok, int e_bf16,
-                                      int q_bf16, void* stream) {
+                                      int q_bf16, int block_l, void* stream) {
   const Args a{mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M,
-               D, n_tok, static_cast<cudaStream_t>(stream)};
+               D, n_tok, block_l, static_cast<cudaStream_t>(stream)};
   return dense<true>(E, a, e_bf16, q_bf16);
 }
 
@@ -545,9 +560,9 @@ extern "C" int colbandit_gather_maxsim(const void* E, const uint8_t* mask,
                                        const int64_t* tok_idx, float* vals,
                                        int F, int G, int L, int M, long long D,
                                        long long n_tok, int e_bf16, int q_bf16,
-                                       void* stream) {
+                                       int block_l, void* stream) {
   const Args a{mask, Q, doc_idx, tok_idx, nullptr, vals, nullptr, F, G, L, M,
-               D, n_tok, static_cast<cudaStream_t>(stream)};
+               D, n_tok, block_l, static_cast<cudaStream_t>(stream)};
   return dense<false>(E, a, e_bf16, q_bf16);
 }
 
@@ -557,9 +572,9 @@ extern "C" int colbandit_fused_reveal_q(
     const float* codebook, int Kc, const uint8_t* mask, const void* Q,
     const int64_t* doc_idx, const int64_t* tok_idx, const uint8_t* new_mask,
     float* vals, float* stats, int F, int G, int L, int M, long long D,
-    long long n_tok, int s_bf16, int q_bf16, void* stream) {
+    long long n_tok, int s_bf16, int q_bf16, int block_l, void* stream) {
   const Args a{mask, Q, doc_idx, tok_idx, new_mask, vals, stats, F, G, L, M,
-               D, n_tok, static_cast<cudaStream_t>(stream)};
+               D, n_tok, block_l, static_cast<cudaStream_t>(stream)};
   return quant<true>(data, scales, codes, codebook, Kc, a, s_bf16, q_bf16);
 }
 
@@ -568,8 +583,8 @@ extern "C" int colbandit_gather_maxsim_q(
     const float* codebook, int Kc, const uint8_t* mask, const void* Q,
     const int64_t* doc_idx, const int64_t* tok_idx, float* vals, int F, int G,
     int L, int M, long long D, long long n_tok, int s_bf16, int q_bf16,
-    void* stream) {
+    int block_l, void* stream) {
   const Args a{mask, Q, doc_idx, tok_idx, nullptr, vals, nullptr, F, G, L, M,
-               D, n_tok, static_cast<cudaStream_t>(stream)};
+               D, n_tok, block_l, static_cast<cudaStream_t>(stream)};
   return quant<false>(data, scales, codes, codebook, Kc, a, s_bf16, q_bf16);
 }

@@ -13,6 +13,10 @@ memory 64 at a time with ``cp.async`` (two chunks in flight), and each
 cell is one sequential FMA chain over M, so a cell equals the dense
 ``maxsim`` kernel's bit for bit. G is at most 64; the shared memory a
 launch needs comes from the kernel's own ``colbandit_reveal_smem_bytes``.
+The block shape is a launch argument, ``block_l`` valid tokens per staged
+chunk: 64 (256 threads), 32 (128 threads), or 0 for the rule by launch
+size (32 above 512 frontier rows), chosen per shape bucket by
+``kernels/tuning.py``; no cell depends on it.
 
 ``colbandit_gather_maxsim_q`` (same source, same body) replaces the
 quantized TPU kernel ``_gather_maxsim_q_kernel``: on a ``QuantTokens``
@@ -32,15 +36,38 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.quant import QuantTokens, corpus_index, dense_rows
 
 _NEG = -3e38
+# Valid tokens per staged chunk of csrc/reveal.cu's block shapes (Wide,
+# Narrow); 0 asks for the rule by launch size.
+BLOCK_L = (64, 32)
+NARROW_ROWS = 512
+
+
+def reveal_block_l(F: int, block_l: int = 0) -> int:
+    """The block_l a launch of F frontier rows runs at (the kernel's
+    ``resolve_block_l``): ``block_l`` itself, or for 0 the rule by F."""
+    if block_l == 0:
+        return BLOCK_L[1] if F > NARROW_ROWS else BLOCK_L[0]
+    return block_l
+
+
+def check_block_l(name: str, block_l) -> int:
+    """``block_l`` as an int, or ValueError where it names no block shape
+    of the kernel (never a quiet fall back to the default)."""
+    _build.require(isinstance(block_l, int)
+                   and (block_l == 0 or block_l in BLOCK_L), name,
+                   f"block_l={block_l!r} is not 0 (by launch size) or one of "
+                   f"the kernel's block shapes {BLOCK_L}")
+    return block_l
 
 
 def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
-                          doc_idx, tok_idx, *extra):
-    """Validate the shared operands of the gathered-MaxSim kernels;
-    ``doc_embs`` is a float tensor or a ``QuantTokens``. Returns the
-    device and the C arguments of the corpus: ([E], e_bf16) for a float
-    tensor, ([data, scales, codes, codebook, Kc], s_bf16) for a
-    ``QuantTokens``."""
+                          doc_idx, tok_idx, *extra, block_l: int = 0):
+    """Validate the shared operands of the gathered-MaxSim kernels, to be
+    launched at ``block_l``; ``doc_embs`` is a float tensor or a
+    ``QuantTokens``. Returns the device and the C arguments of the corpus:
+    ([E], e_bf16) for a float tensor, ([data, scales, codes, codebook,
+    Kc], s_bf16) for a ``QuantTokens``."""
+    check_block_l(name, block_l)
     quant = isinstance(doc_embs, QuantTokens)
     leaves = ([a for a in doc_embs if a is not None] if quant
               else [doc_embs])
@@ -83,7 +110,7 @@ def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
                    f"{doc_idx.shape[0]} frontier rows exceed the grid")
     esz = 1 if quant else doc_embs.element_size()
     smem = _build.library("reveal.cu").colbandit_reveal_smem_bytes(
-        doc_idx.shape[0], G, L, M, esz, int(quant), kc)
+        doc_idx.shape[0], G, L, M, esz, int(quant), kc, block_l)
     _build.require(smem >= 0, name,
                    f"G={G} query rows per frontier row exceed the "
                    "kernel's limit (kMaxG in csrc/reveal.cu)")
@@ -95,29 +122,34 @@ def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
 
 def gather_maxsim_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                        queries: torch.Tensor, doc_idx: torch.Tensor,
-                       tok_idx: torch.Tensor) -> torch.Tensor:
+                       tok_idx: torch.Tensor, block_l: int = 0
+                       ) -> torch.Tensor:
     """doc_embs (D, L, M), doc_tok_mask (D, L) bool, queries (TQ, M),
-    doc_idx (F,) i64, tok_idx (F, G) i64 -> (F, G) f32, on the card."""
+    doc_idx (F,) i64, tok_idx (F, G) i64 -> (F, G) f32, on the card, at
+    block shape ``block_l``."""
     _build.require(isinstance(doc_embs, torch.Tensor), "gather_maxsim",
                    "a QuantTokens corpus goes to gather_maxsim_q_cuda")
     return _launch("gather_maxsim", doc_embs, doc_tok_mask, queries, doc_idx,
-                   tok_idx)
+                   tok_idx, block_l)
 
 
 def gather_maxsim_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
                          queries: torch.Tensor, doc_idx: torch.Tensor,
-                         tok_idx: torch.Tensor) -> torch.Tensor:
+                         tok_idx: torch.Tensor, block_l: int = 0
+                         ) -> torch.Tensor:
     """``gather_maxsim_cuda`` on a compressed corpus: doc_embs a
     ``QuantTokens`` with a (D, L, M) int8 payload."""
     _build.require(isinstance(doc_embs, QuantTokens), "gather_maxsim_q",
                    "doc_embs must be a QuantTokens")
     return _launch("gather_maxsim_q", doc_embs, doc_tok_mask, queries,
-                   doc_idx, tok_idx)
+                   doc_idx, tok_idx, block_l)
 
 
-def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx):
+def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx,
+            block_l):
     dev, corpus_args, e_bf16 = check_gather_operands(
-        name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx)
+        name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx,
+        block_l=block_l)
     F, G = tok_idx.shape
     D, L, M = doc_embs.shape
     out = torch.empty((F, G), dtype=torch.float32, device=dev)
@@ -130,7 +162,8 @@ def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx):
             *corpus_args, doc_tok_mask.data_ptr(), queries.data_ptr(),
             doc_idx.data_ptr(), tok_idx.data_ptr(), out.data_ptr(), F, G, L,
             M, D, queries.shape[0], e_bf16,
-            int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
+            int(queries.dtype == torch.bfloat16), block_l,
+            _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return out
 

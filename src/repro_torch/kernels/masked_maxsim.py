@@ -30,8 +30,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.maxsim import _check_maxsim, _dense_smem, \
-    maxsim_plain
+from repro_torch.kernels.maxsim import MASKED_DOCS, _check_maxsim, \
+    _dense_smem, maxsim_plain
 from repro_torch.kernels.quant import QuantTokens, corpus_reshape
 
 
@@ -106,7 +106,8 @@ def masked_maxsim_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                    "doc_embs must be contiguous float32/bfloat16")
     out = _check_maxsim(name, doc_embs[None], doc_tok_mask[None],
                         queries[None],
-                        _dense_smem(doc_embs.element_size()))[0]
+                        _dense_smem(doc_embs.element_size(),
+                                    docs=MASKED_DOCS))[0]
     if out.numel() == 0:
         return out
     lib = _build.library("maxsim.cu")
@@ -136,7 +137,8 @@ def masked_maxsim_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
     qargs, s_bf16 = _build.quant_args(name, doc_embs)
     out = _check_maxsim(name, corpus_reshape(doc_embs, 1, N),
                         doc_tok_mask[None], queries[None],
-                        _dense_smem(1, qargs[-1], scaled=True))[0]
+                        _dense_smem(1, qargs[-1], scaled=True,
+                                    docs=MASKED_DOCS))[0]
     if out.numel() == 0:
         return out
     lib = _build.library("maxsim.cu")

@@ -18,9 +18,12 @@ an f32 tile. Bound on the H100: operations (~63 flop per int8 byte at the
 serving shape, above the ridge). Its values equal ``colbandit_maxsim`` on
 the dequantized corpus bit for bit.
 
-The shared memory a launch needs comes from the kernel's own
-``colbandit_maxsim_smem_bytes``; a size beyond the card's raises
-ValueError before any launch.
+The docs per block, ``block_n``, are a launch argument (1, 2 or 4; 2 by
+default, the shape before tuning existed), chosen per shape bucket by
+``kernels/tuning.py``; no cell depends on it. The shared memory a launch
+needs comes from the kernel's own ``colbandit_maxsim_smem_bytes`` at that
+``block_n``; a ``block_n`` the kernel is not built for, or a size beyond
+the card's, raises ValueError before any launch.
 
 ``maxsim_batch_plain`` is the plain PyTorch version of both
 (``kernels/ref.py``'s ``maxsim_batch_ref``: an L-chunked running max that
@@ -35,6 +38,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.quant import QuantTokens, dense_rows, dequant_block
 
 _NEG = -3e38
+# Docs per block the dense kernel is built for (csrc/maxsim.cu's
+# dense_docs_ok), and the masked kernel's one.
+BLOCK_N = (1, 2, 4)
+MASKED_DOCS = 2
 
 
 def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_bytes):
@@ -64,21 +71,34 @@ def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_bytes):
                        device=queries.device)
 
 
-def _dense_smem(elem_bytes: int, kc: int = 0, scaled: bool = False):
-    """``smem_bytes`` of the dense body for rows of ``elem_bytes`` bytes an
-    element (scaled rows and ``kc`` codebook rows for ``_q``)."""
+def _dense_smem(elem_bytes: int, kc: int = 0, scaled: bool = False,
+                docs: int = MASKED_DOCS):
+    """``smem_bytes`` of the dense body at ``docs`` docs per block for rows
+    of ``elem_bytes`` bytes an element (scaled rows and ``kc`` codebook rows
+    for ``_q``)."""
     def smem_bytes(L, M):
         return _build.library("maxsim.cu").colbandit_maxsim_smem_bytes(
-            L, M, elem_bytes, int(scaled), kc)
+            L, M, elem_bytes, int(scaled), kc, docs)
     return smem_bytes
 
 
+def check_block_n(name: str, block_n) -> int:
+    """``block_n`` as an int, or ValueError where the dense kernel is not
+    built for it (never a quiet fall back to the default)."""
+    _build.require(isinstance(block_n, int) and block_n in BLOCK_N, name,
+                   f"block_n={block_n!r} is not one of the dense kernel's "
+                   f"docs per block {BLOCK_N}")
+    return block_n
+
+
 def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
-                      queries: torch.Tensor) -> torch.Tensor:
+                      queries: torch.Tensor, block_n: int = 2
+                      ) -> torch.Tensor:
     """H (B, N, T) f32 from doc_embs (B, N, L, M), doc_tok_mask (B, N, L)
-    bool and queries (B, T, M), on the card. f32 or bf16 inputs, f32
-    accumulation; -3e38 for an all-masked doc."""
+    bool and queries (B, T, M), on the card, ``block_n`` docs per block.
+    f32 or bf16 inputs, f32 accumulation; -3e38 for an all-masked doc."""
     name = "maxsim"
+    block_n = check_block_n(name, block_n)
     _build.require(isinstance(doc_embs, torch.Tensor), name,
                    "a QuantTokens corpus goes to maxsim_batch_q_cuda")
     dev = _build.require_cuda(name, doc_embs, doc_tok_mask, queries)
@@ -86,7 +106,7 @@ def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                    and doc_embs.is_contiguous(), name,
                    "doc_embs must be contiguous float32/bfloat16")
     out = _check_maxsim(name, doc_embs, doc_tok_mask, queries,
-                        _dense_smem(doc_embs.element_size()))
+                        _dense_smem(doc_embs.element_size(), docs=block_n))
     if out.numel() == 0:
         return out
     B, N, L, M = doc_embs.shape
@@ -96,17 +116,20 @@ def maxsim_batch_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
             doc_embs.data_ptr(), doc_tok_mask.data_ptr(), queries.data_ptr(),
             out.data_ptr(), B, N, L, M, queries.shape[1],
             int(doc_embs.dtype == torch.bfloat16),
-            int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
+            int(queries.dtype == torch.bfloat16), block_n,
+            _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return out
 
 
 def maxsim_batch_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
-                        queries: torch.Tensor) -> torch.Tensor:
+                        queries: torch.Tensor, block_n: int = 2
+                        ) -> torch.Tensor:
     """``maxsim_batch_cuda`` on a compressed corpus: doc_embs a
     ``QuantTokens`` with a (B, N, L, M) int8 payload, (B, N, L) scales (and
     codes), and a shared (Kc, M) codebook for the residual format."""
     name = "maxsim_q"
+    block_n = check_block_n(name, block_n)
     _build.require(isinstance(doc_embs, QuantTokens), name,
                    "doc_embs must be a QuantTokens")
     dev = _build.require_cuda(name, *(a for a in doc_embs if a is not None),
@@ -114,7 +137,7 @@ def maxsim_batch_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
     qargs, s_bf16 = _build.quant_args(name, doc_embs)
     M = doc_embs.shape[-1]
     out = _check_maxsim(name, doc_embs, doc_tok_mask, queries,
-                        _dense_smem(1, qargs[-1], scaled=True))
+                        _dense_smem(1, qargs[-1], scaled=True, docs=block_n))
     if out.numel() == 0:
         return out
     B, N, L, _ = doc_embs.shape
@@ -123,7 +146,8 @@ def maxsim_batch_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
         status = lib.colbandit_maxsim_q(
             *qargs, doc_tok_mask.data_ptr(), queries.data_ptr(),
             out.data_ptr(), B, N, L, M, queries.shape[1], s_bf16,
-            int(queries.dtype == torch.bfloat16), _build.stream_ptr(dev))
+            int(queries.dtype == torch.bfloat16), block_n,
+            _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return out
 

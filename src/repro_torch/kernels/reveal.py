@@ -13,7 +13,9 @@ valid tokens, all of a serving doc's rows in flight at once (``cp.async``
 into two 64-token shared buffers; 128 threads and 32-token buffers for a
 launch of more than 512 rows, such as the init reveal), and each thread
 keeps a running max per cell in registers, so one shuffle tree per cell
-runs at the end of the row. Each cell is one sequential FMA chain over M, the dense
+runs at the end of the row. The block shape is a launch argument,
+``block_l`` (64, 32, or 0 for the rule by launch size; see
+``gather_maxsim.py``), chosen per shape bucket by ``kernels/tuning.py``. Each cell is one sequential FMA chain over M, the dense
 ``maxsim`` kernel's arithmetic, so the two kernels' cells are equal bit
 for bit. The TPU layout's 8-lane stats padding is dropped: stats are
 (F, 3).
@@ -69,33 +71,37 @@ def reveal_stats(vals: torch.Tensor, new_mask: torch.Tensor) -> torch.Tensor:
 
 def fused_reveal_cuda(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                       queries: torch.Tensor, doc_idx: torch.Tensor,
-                      tok_idx: torch.Tensor, new_mask: torch.Tensor
+                      tok_idx: torch.Tensor, new_mask: torch.Tensor,
+                      block_l: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """doc_embs (D, L, M), doc_tok_mask (D, L) bool, queries (TQ, M),
     doc_idx (F,) i64, tok_idx (F, G) i64, new_mask (F, G) bool ->
-    (vals (F, G) f32, stats (F, 3) f32), on the card."""
+    (vals (F, G) f32, stats (F, 3) f32), on the card, at block shape
+    ``block_l``."""
     _build.require(isinstance(doc_embs, torch.Tensor), "fused_reveal",
                    "a QuantTokens corpus goes to fused_reveal_q_cuda")
     return _launch("fused_reveal", doc_embs, doc_tok_mask, queries, doc_idx,
-                   tok_idx, new_mask)
+                   tok_idx, new_mask, block_l)
 
 
 def fused_reveal_q_cuda(doc_embs: QuantTokens, doc_tok_mask: torch.Tensor,
                         queries: torch.Tensor, doc_idx: torch.Tensor,
-                        tok_idx: torch.Tensor, new_mask: torch.Tensor
+                        tok_idx: torch.Tensor, new_mask: torch.Tensor,
+                        block_l: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``fused_reveal_cuda`` on a compressed corpus: doc_embs a
     ``QuantTokens`` with a (D, L, M) int8 payload."""
     _build.require(isinstance(doc_embs, QuantTokens), "fused_reveal_q",
                    "doc_embs must be a QuantTokens")
     return _launch("fused_reveal_q", doc_embs, doc_tok_mask, queries,
-                   doc_idx, tok_idx, new_mask)
+                   doc_idx, tok_idx, new_mask, block_l)
 
 
 def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx,
-            new_mask):
+            new_mask, block_l):
     dev, corpus_args, e_bf16 = check_gather_operands(
-        name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx, new_mask)
+        name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx, new_mask,
+        block_l=block_l)
     _build.require(tuple(new_mask.shape) == tuple(tok_idx.shape)
                    and new_mask.dtype == torch.bool
                    and new_mask.is_contiguous(), name,
@@ -115,7 +121,7 @@ def _launch(name, doc_embs, doc_tok_mask, queries, doc_idx, tok_idx,
             doc_idx.data_ptr(), tok_idx.data_ptr(), new_mask.data_ptr(),
             vals.data_ptr(), stats.data_ptr(), F, G, L, M, D,
             queries.shape[0], e_bf16, int(queries.dtype == torch.bfloat16),
-            _build.stream_ptr(dev))
+            block_l, _build.stream_ptr(dev))
     _build.check_launch(status, name)
     return vals, stats
 

@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.audit import nbytes, note_collective
 from repro_torch.core.bandit import stable_topk
 from repro_torch.core.batched import (BatchedConfig, _max_rounds,
                                       run_batched_bandit)
@@ -438,12 +439,16 @@ def _merge_scorecards(scores, gids, topk: int, device):
         if sc.shape[1] > topk:
             sc, pos = stable_topk(sc, topk)
             g = torch.gather(g, 1, pos)
+        # The scorecards are the merge's all-gather (what the audit counts):
+        # ids cross as int32, as JAX's s32 gids (every id is < 2**31).
+        g = g.to(torch.int32)
+        note_collective("all-gather", nbytes(sc, g))
         cards_s.append(sc.to(device))
         cards_g.append(g.to(device))
     all_g = torch.cat(cards_g, dim=1)
     all_s = torch.where(all_g >= 0, torch.cat(cards_s, dim=1), _NEG)
     best, pos = stable_topk(all_s, topk)
-    ids = torch.gather(all_g, 1, pos)
+    ids = torch.gather(all_g, 1, pos).to(gids[0].dtype)
     return best, torch.where(best > _NEG / 2, ids, -1)
 
 
@@ -742,6 +747,7 @@ def _sharded_outputs(mesh: Mesh, topk: int, cards, n_revs, n_cellss, stats):
     the reveal fraction from the shard-order sums (psum) of revealed and
     total cells, and the (n_shards, ...) stats."""
     merge = mesh.devices[0]
+    note_collective("all-reduce", nbytes(n_revs[0], n_cellss[0]))
     tot_rev = functools.reduce(torch.add, (x.to(merge) for x in n_revs))
     tot_cells = functools.reduce(torch.add, (x.to(merge) for x in n_cellss))
     frac = tot_rev / torch.clamp(tot_cells, min=1.0)

@@ -35,19 +35,26 @@ key derivations on a :class:`repro_torch.core.draws.DrawSource`
 
 The engine runs on ``device`` (default ``"cuda"``); the tests pass
 ``"cpu"``, where every kernel takes its plain PyTorch version. With
-``mesh_axes`` the corpus is mesh-resident (``retrieval.sharded``, every
-shard on ``device``): prepared batches are routed to their shards by
+``mesh_axes`` the corpus is mesh-resident (``retrieval.sharded``, shard
+``i`` on ``cuda:i`` where the host has a card per shard, else every shard
+on ``device``): prepared batches are routed to their shards by
 ``route_batch`` and served by the sharded steps, ``stage1="local"`` serves
 candidate-less batches through the routed step (shard-local stage 1), and
 ``fail_shard`` / ``restore_shard`` flip a shard's health, an operand of the
-warmed steps. Kernel autotuning and the compile-contract audit are not
-ported: setting them raises ``NotImplementedError``.
+warmed steps.
+
+``autotune`` times the kernels' launch shapes at every shape bucket the
+warmed steps launch (``kernels.tuning``, ``kernels.ops.autotune_op``) before
+the buckets are warmed, reusing and persisting ``tuning_table``; ``audit``
+runs every warmed bucket once under the contract recorder
+(``repro_torch.analysis.audit``) after warmup.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import itertools
+import os
 import queue as queue_mod
 import threading
 import time
@@ -59,11 +66,16 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from repro_torch.analysis.audit import (HLO_DTYPES, AuditReport, AuditSpec,
+                                        audit_step, scorecard_budget_bytes)
 from repro_torch.core.draws import TORCH_DRAWS, DrawSource
 from repro_torch.dist.fault import (ChaosKill, DeadlineBatcher, FaultPlan,
                                     apply_delay)
-from repro_torch.dist.mesh import make_mesh
-from repro_torch.kernels.quant import CORPUS_FORMATS
+from repro_torch.dist.mesh import make_mesh, mesh_devices
+from repro_torch.kernels import tuning
+from repro_torch.kernels.ops import autotune_op
+from repro_torch.kernels.quant import (CORPUS_FORMATS, QuantTokens,
+                                       corpus_nbytes, format_ordinal)
 from repro_torch.retrieval.corpus import Corpus, build_corpus
 from repro_torch.retrieval.pipeline import candidates_for
 from repro_torch.retrieval.service import (init_stream_state,
@@ -109,12 +121,14 @@ class EngineConfig:
     # many tokens per selected doc out of freed frontier cell capacity
     # (0 = fixed token blocks).
     max_block_tokens: int = 0
-    # Kernel block-size autotuning: not ported (the port's block sizes are
-    # constants of the CUDA sources); True or a table raises.
+    # Kernel launch-shape autotuning (kernels.tuning): time the candidate
+    # shapes of every bucket before warmup; a table file is loaded first
+    # and this engine's buckets written back.
     autotune: bool = False
     tuning_table: Optional[str] = None
     # Corpus mesh: () serves from one device; (("data", 2), ("model", 2))
-    # splits the corpus over 4 shards (all on the engine's device).
+    # splits the corpus over 4 shards, one card each where the host has as
+    # many cards, else all on the engine's device.
     mesh_axes: Tuple[Tuple[str, int], ...] = ()
     # Resident corpus format (kernels.quant.CORPUS_FORMATS): "bf16" keeps
     # the corpus at its source dtype (f32 stays f32); "int8" and "residual"
@@ -170,8 +184,8 @@ class EngineConfig:
     degrade_alpha_scales: Tuple[float, ...] = (2.0, 4.0, 8.0)
     degrade_round_caps: Tuple[int, ...] = (0, 8, 4)
     seed: int = 0
-    # Compile-contract auditing reads XLA HLO and is not ported; True
-    # raises. The two bounds only matter with it.
+    # Serving-contract audit of every warmed bucket after warmup
+    # (repro_torch.analysis.audit); the two bounds only matter with it.
     audit: bool = False
     audit_peak_bytes: int = 0
     audit_require_bf16: bool = False
@@ -270,8 +284,8 @@ class EngineMetrics:
         # and requests admitted with a truncated candidate list.
         self.rejected: int = 0
         self.degraded: int = 0
-        # Autotuning accounting: not ported, kept at its idle values so the
-        # summary has the JAX engine's keys.
+        # Autotuning accounting: seconds spent timing, buckets timed, and
+        # table entries loaded from ``tuning_table``.
         self.autotune_s: float = 0.0
         self.autotune_buckets: int = 0
         self.tuning_entries_loaded: int = 0
@@ -416,12 +430,6 @@ class _Prepared(NamedTuple):
     degrade_level: int = 0
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
-
-
 class RetrievalEngine:
     """Deadline-batched, shape-bucketed late-interaction serving loop.
 
@@ -469,18 +477,16 @@ class RetrievalEngine:
         self.device = torch.device(device)
         mesh = None
         if cfg.mesh_axes:
-            mesh = make_mesh(tuple(int(n) for _, n in cfg.mesh_axes),
-                             tuple(a for a, _ in cfg.mesh_axes),
-                             device=self.device)
+            # One card per shard where the host has as many (jax.make_mesh),
+            # else every shard on the engine's device.
+            shape = tuple(int(n) for _, n in cfg.mesh_axes)
+            mesh = make_mesh(shape, tuple(a for a, _ in cfg.mesh_axes),
+                             devices=mesh_devices(int(np.prod(shape)),
+                                                  self.device))
         elif cfg.stage1 == "local":
             raise ValueError("stage1='local' runs inside the corpus "
                              "shard_map and needs mesh_axes")
         self._routed = mesh is not None and cfg.stage1 == "local"
-        if cfg.autotune or cfg.tuning_table:
-            raise _not_ported("kernel autotuning (autotune, tuning_table)",
-                              "3")
-        if cfg.audit:
-            raise _not_ported("the compile-contract audit (audit)", "5")
         self._draws = draws or TORCH_DRAWS
         # The router is built at shard time only where shard-local stage 1
         # consumes it (and, as the codebook, for a residual corpus).
@@ -533,6 +539,8 @@ class RetrievalEngine:
         # Stage 1 on a mesh reads the whole corpus (the all-gather, a view
         # where every shard is on one device); made on first use.
         self._stage1_corpus = None
+        # The reports of the last audit() (warmup runs one under audit).
+        self.audit_reports: Dict[tuple, AuditReport] = {}
 
     def _admission_headroom(self) -> float:
         """Expected batch service time the batcher must leave between
@@ -635,6 +643,43 @@ class RetrievalEngine:
         a, b = support_bounds(cand, [tb] * B, tb, self.cfg.support)
         return q, cand, a, b
 
+    def _warm_args(self, key: tuple, round_cap: int) -> tuple:
+        """The operands of one run of a bucket's step on inputs of the
+        bucket's shape (``_warm_inputs``), at full fidelity with the
+        bandit's rounds capped at ``round_cap`` (0: uncapped)."""
+        B = self.cfg.batch_size
+        if key[0] == "step":
+            q, cand, a, b = self._warm_inputs(key[2], key[3])
+            if self.sharded is None:
+                return (self.corpus_embs, self.corpus_mask, self._tensor(q),
+                        self._tensor(cand), self._tensor(a),
+                        self._tensor(b), 0, 1.0, round_cap)
+            sc = self.sharded
+            cand_l, (a_l, b_l) = route_batch(cand, (a, b), sc.docs_per_shard,
+                                             sc.n_shards, n_local=key[3])
+            # Health mask and knobs are operands of the one warmed step:
+            # failover and ladder rungs never rebuild it.
+            return (self.corpus_embs, self.corpus_mask, self._tensor(q),
+                    self._tensor(cand_l), self._tensor(a_l),
+                    self._tensor(b_l), sc.valid_docs, 0,
+                    self.shard_health(), 1.0, round_cap)
+        if key[0] == "routed":
+            return (self.corpus_embs, self.corpus_mask, *self._router_args,
+                    self._tensor(self._warm_inputs(key[2], 1)[0]),
+                    self.sharded.valid_docs, 0, self.shard_health(), 1.0,
+                    round_cap)
+        if key[0] == "stream":
+            q, cand, a, b = self._warm_inputs(key[1], key[2])
+            return (self.corpus_embs, self.corpus_mask, self._tensor(q),
+                    self._tensor(cand), self._tensor(a), self._tensor(b),
+                    init_stream_state(B, key[2], key[1], device=self.device),
+                    torch.ones((B,), dtype=torch.bool, device=self.device),
+                    self._draws.split(self._base_seed, B))
+        if key[0] == "stage1":
+            return (*self._stage1_operands(),
+                    self._tensor(self._warm_inputs(key[1], 1)[0]))
+        raise KeyError(key)
+
     def _build(self, key: tuple):
         """Build the step of one bucket key and run it once on inputs of
         the bucket's shape, so its kernels are built and loaded before
@@ -649,23 +694,12 @@ class RetrievalEngine:
                        max_block_tokens=cfg.max_block_tokens)
         draws, base = self._draws, self._base_seed
         if key[0] == "step" and self.sharded is not None:
-            _, flavor, tb, nb = key
-            sc = self.sharded
             run = make_sharded_serving_step(
-                sc.mesh, flavor, engine=cfg.bandit_engine,
+                self.sharded.mesh, key[1], engine=cfg.bandit_engine,
                 base_seed=cfg.seed, corpus_format=cfg.corpus_format,
                 draws=draws, **step_kw)
-            q, cand, a, b = self._warm_inputs(tb, nb)
-            cand_l, (a_l, b_l) = route_batch(cand, (a, b), sc.docs_per_shard,
-                                             sc.n_shards, n_local=nb)
-            # Health mask and knobs are operands of the one warmed step:
-            # failover and ladder rungs never rebuild it.
-            warm = run(self.corpus_embs, self.corpus_mask, self._tensor(q),
-                       self._tensor(cand_l), self._tensor(a_l),
-                       self._tensor(b_l), sc.valid_docs, 0,
-                       self.shard_health(), 1.0, 1)
         elif key[0] == "step":
-            _, flavor, tb, nb = key
+            flavor = key[1]
             step = make_serving_step(flavor, engine=cfg.bandit_engine,
                                      draws=draws, **step_kw)
 
@@ -677,44 +711,23 @@ class RetrievalEngine:
                          draws.split(draws.fold_in(base, ordinal), B))
                 return step(ce, cm, q, cand, a, b, seeds, alpha_scale=a_s,
                             round_cap=r_c)
-
-            q, cand, a, b = self._warm_inputs(tb, nb)
-            # One capped round: enough to launch every kernel of the step.
-            warm = run(self.corpus_embs, self.corpus_mask, self._tensor(q),
-                       self._tensor(cand), self._tensor(a), self._tensor(b),
-                       0, 1.0, 1)
         elif key[0] == "routed":
             # Routed step: route + shard-local stage 1 + rerank + merge, one
             # step per (flavor, token bucket); the candidate bucket is
             # pinned to the stage-1 width.
-            _, flavor, tb = key
-            sc = self.sharded
             run = make_routed_serving_step(
-                sc.mesh, flavor, n_local=self._stage1_n,
+                self.sharded.mesh, key[1], n_local=self._stage1_n,
                 n_total=cfg.stage1_total, kprime=cfg.stage1_kprime,
                 support=cfg.support, prereveal_ann=cfg.prereveal_ann,
                 engine=cfg.bandit_engine, base_seed=cfg.seed, draws=draws,
                 **step_kw)
-            warm = run(self.corpus_embs, self.corpus_mask,
-                       *self._router_args,
-                       self._tensor(self._warm_inputs(tb, 1)[0]),
-                       sc.valid_docs, 0, self.shard_health(), 1.0, 1)
         elif key[0] == "stream":
-            _, tb, nb = key
             if self.sharded is not None:
                 raise ValueError("continuous (slot-refill) serving is "
                                  "single-device; unset mesh_axes")
             run = make_streaming_step(trip_limit=cfg.stream_trip_limit,
                                       draws=draws, **step_kw)
-            q, cand, a, b = self._warm_inputs(tb, nb)
-            warm = run(self.corpus_embs, self.corpus_mask, self._tensor(q),
-                       self._tensor(cand), self._tensor(a), self._tensor(b),
-                       init_stream_state(B, nb, tb, device=self.device),
-                       torch.ones((B,), dtype=torch.bool,
-                                  device=self.device),
-                       draws.split(base, B))[:5]
         elif key[0] == "stage1":
-            _, tb = key
             if self._quantized:
                 raise ValueError(
                     "stage-1 kNN needs a dense corpus; quantized engines "
@@ -725,12 +738,10 @@ class RetrievalEngine:
             def run(ce, cm, q):
                 cs = candidates_for(ce, cm, q, **kw)
                 return cs.doc_ids, cs.a, cs.b
-
-            warm = run(*self._stage1_operands(),
-                       self._tensor(self._warm_inputs(tb, 1)[0]))
         else:
             raise KeyError(key)
-        for x in warm:
+        # One capped round: enough to launch every kernel of the step.
+        for x in run(*self._warm_args(key, round_cap=1))[:5]:
             x.cpu()
         return run
 
@@ -745,10 +756,88 @@ class RetrievalEngine:
                                        self.corpus_mask.gather())
             return self._stage1_corpus
 
+    def _autotune_dims(self) -> List[Tuple[str, Dict[str, int]]]:
+        """The (op, dims) kernel shape buckets the warmed steps launch, in
+        the JAX engine's order and keys: dense buckets hit
+        ``maxsim_batch``, bandit buckets the fused reveal round (and its
+        ``gather_maxsim`` chain-body twin, so A/B runs stay tuned too)."""
+        cfg = self.cfg
+        B = cfg.batch_size
+        L, M = self.corpus_embs.shape[1], self.corpus_embs.shape[2]
+        half = max(cfg.block_docs // 2, 1)
+        G = max(cfg.block_tokens, 1)
+        # ops.launch_dims adds the format ordinal of a quantized launch, so
+        # the tuned bucket is the launched bucket.
+        fmt = ({} if not self._quantized
+               else {"FMT": format_ordinal(cfg.corpus_format)})
+        out: List[Tuple[str, Dict[str, int]]] = []
+        for tb in self.buckets.token_buckets:
+            for nb in self.buckets.cand_buckets:
+                # Sharded or not, each shard's candidate list is nb wide
+                # (route_batch packs n_local=nb slots per shard).
+                if self.flavor_for(nb) == "dense":
+                    out.append(("maxsim_batch",
+                                dict(B=B, N=nb, T=tb, L=L, M=M, **fmt)))
+                else:
+                    # The round launch's geometry, core/frontier.py's width
+                    # math: selection widths grow with the growth knobs
+                    # (half_w docs, G_cap tokens), and the launch has the
+                    # Q*W selection rows without doc growth or the
+                    # compacted F = Q*2*half frontier with it.
+                    half_w = min(max(cfg.max_block_docs // 2, half),
+                                 max(nb, 1))
+                    rows = B * 2 * (half if half_w > half else half_w)
+                    g = min(max(cfg.max_block_tokens, G), max(tb, 1))
+                    dims = dict(B=rows, G=g, L=L, M=M, D=B * nb, TQ=B * tb,
+                                **fmt)
+                    out.append(("fused_reveal", dims))
+                    out.append(("gather_maxsim", dims))
+        return out
+
+    def autotune(self) -> int:
+        """Time the candidate launch shapes of every kernel shape bucket
+        the warmed steps launch and record the winners in the tuning table
+        (``kernels.tuning``); buckets a loaded entry covers are skipped.
+        On the card each candidate is timed by CUDA events; on the CPU the
+        ops ignore launch shapes and nothing is recorded. Returns the
+        buckets measured; the seconds land in ``metrics.autotune_s``."""
+        t0 = time.perf_counter()
+        measured = 0
+        for op, dims in self._autotune_dims():
+            if tuning.bucket_key(op, dims) in tuning.table():
+                continue
+            # Queries (and a quantized bucket's pre-encode source) in f32;
+            # a float corpus is timed at its own dtype.
+            dtype = (torch.float32 if self._quantized
+                     else self.corpus_embs.dtype)
+            autotune_op(op, dims, dtype=dtype, device=self.device)
+            measured += 1
+        self.metrics.autotune_s += time.perf_counter() - t0
+        self.metrics.autotune_buckets += measured
+        return measured
+
     def warmup(self) -> List[tuple]:
         """Build and run once every bucket the policy can reach; after this
         returns the engine serves any admissible stream with zero builds,
-        and no serving thread ever compiles a kernel."""
+        and no serving thread ever compiles a kernel.
+
+        With ``cfg.autotune`` the launch shapes are tuned first (per shape
+        bucket, reusing and persisting ``cfg.tuning_table``), so the warmed
+        steps launch the tuned shapes; with ``cfg.audit`` every warmed
+        bucket is audited last."""
+        cfg = self.cfg
+        if cfg.tuning_table and os.path.exists(cfg.tuning_table):
+            self.metrics.tuning_entries_loaded += tuning.load_table(
+                cfg.tuning_table)
+        if cfg.autotune:
+            self.autotune()
+            if cfg.tuning_table:
+                # Persist only THIS engine's buckets: the in-process table
+                # is a cache shared by engines, and dumping it whole would
+                # leak another engine's buckets into this file.
+                tuning.save_table(cfg.tuning_table, keys={
+                    tuning.bucket_key(op, dims)
+                    for op, dims in self._autotune_dims()})
         for tb in self.buckets.token_buckets:
             if not self._quantized:
                 # Stage 1 scans raw token rows; quantized engines reject
@@ -764,10 +853,119 @@ class RetrievalEngine:
                 # flavor_for is a pure function of the bucket, so exactly
                 # one flavor is reachable per (tb, nb).
                 self._executable(("step", self.flavor_for(nb), tb, nb))
-        if self.cfg.continuous:
+        if cfg.continuous:
             self._executable(("stream", *self._stream_bucket))
         self._warmed = True
+        if cfg.audit:
+            self.audit()
         return self.compiled_buckets
+
+    # -- serving-contract audit -------------------------------------------
+
+    def _bucket_peak_bound(self, key: tuple) -> int:
+        """Peak bound of ONE bucket (the JAX engine's formula): the
+        gathered candidate working set in resident-format bytes, the f32
+        copies the scorers make, and (stage 1 and routed) the whole-index
+        similarity scan, with a generous factor, plus the corpus and 256
+        MiB. It scales with the bucket, so a bucket that makes another
+        bucket's (or the whole corpus's) working set still trips
+        ``hlo-peak-buffer``. ``cfg.audit_peak_bytes`` overrides."""
+        cfg = self.cfg
+        B = cfg.batch_size
+        rows, L, M = self.corpus_embs.shape
+        corpus_bytes = sum(corpus_nbytes(p) for p in self._corpus_parts())
+        if self.sharded is not None:
+            shards = max(self.corpus.n_shards, 1)
+            rows //= shards
+            corpus_bytes //= shards
+        if key[0] == "step":
+            tb, nb = key[2], key[3]
+        elif key[0] == "stream":
+            tb, nb = key[1], key[2]
+        elif key[0] == "routed":
+            tb, nb = key[2], self._stage1_n
+        else:                                     # ("stage1", tb)
+            tb, nb = key[1], self._stage1_n
+        fmt = cfg.corpus_format
+        if fmt == "bf16":
+            row_bytes = L * M * self.corpus_embs.dtype.itemsize
+        else:
+            # int8 payload + bf16 scale plane (+ i32 centroid ids).
+            row_bytes = L * M + L * (2 + (4 if fmt == "residual" else 0))
+        gathered = B * nb * row_bytes             # resident-format gather
+        work = B * nb * L * max(M, tb) * 4        # f32 dequant/sim copies
+        if key[0] in ("stage1", "routed"):
+            work += B * tb * rows * L * 4         # full-index token kNN
+        return 8 * (gathered + work) + corpus_bytes + (256 << 20)
+
+    def _corpus_parts(self) -> list:
+        """The resident corpus, one value per shard (one off-mesh)."""
+        embs = self.corpus_embs
+        return list(embs.parts) if self.sharded is not None else [embs]
+
+    def _allowed_reads(self) -> Dict[str, Optional[int]]:
+        """The host reads a step may make, by site (see
+        ``analysis.audit``): the bandit loop's continue test, once a trip
+        plus the last test, one loop per shard on a mesh: the pooled
+        engines' ``run_loop``, the lockstep engine's per-query loop. Its
+        count follows the data, so it is not capped; no other site is
+        allowed, and no read inside a trip ever."""
+        if self.cfg.bandit_engine == "vmapped":
+            return {"core/batched.py::run_batched_bandit": None}
+        return {"core/frontier.py::run_loop": None}
+
+    def _audit_spec(self, key: tuple) -> AuditSpec:
+        """The per-bucket contract ``audit()`` asserts (the JAX engine's).
+
+        Collective budget: a mesh step or routed step may move exactly the
+        scorecard merge (per-shard top-K scores and ids) plus two scalar
+        sums per query, ``scorecard_budget_bytes(B, S, max_k)``; stage 1 on
+        a mesh reads the gathered index (unbudgeted); everything off-mesh
+        gets 0. Residency: a bf16 corpus (or ``audit_require_bf16``) arms
+        the promotion rule, a quantized one the int8 rule."""
+        cfg = self.cfg
+        corpus_dtype = HLO_DTYPES.get(self.corpus_embs.dtype)
+        if cfg.audit_require_bf16 and corpus_dtype != "s8":
+            # The contract dtype, not the observed one: an f32-resident
+            # corpus then trips the promotion rule on its own operands.
+            corpus_dtype = "bf16"
+        corpus_elems = int(np.prod(self.corpus_embs.shape))
+        meshed = self.sharded is not None
+        if meshed:
+            corpus_elems //= max(self.corpus.n_shards, 1)
+        if key[0] in ("step", "routed") and meshed:
+            budget = scorecard_budget_bytes(cfg.batch_size,
+                                            self.corpus.n_shards, cfg.max_k)
+        elif key[0] == "stage1" and meshed:
+            budget = None
+        else:
+            budget = 0
+        peak = cfg.audit_peak_bytes or self._bucket_peak_bound(key)
+        return AuditSpec(collective_budget=budget, peak_bytes=peak,
+                         corpus_dtype=corpus_dtype,
+                         corpus_elems=corpus_elems,
+                         allowed_reads=self._allowed_reads())
+
+    def audit(self) -> Dict[tuple, AuditReport]:
+        """Run every warmed bucket once on its bucket's shapes, uncapped,
+        under the contract recorder (``analysis.audit.audit_step``): no
+        host read inside a trip and none outside the allowed sites, no
+        f64, no promoted or dequantized-whole corpus, cross-shard bytes
+        within the scorecard budget, peak within the bucket's bound.
+        Raises ``AuditError`` with the offending sites on the first broken
+        contract; returns ``{bucket key: AuditReport}`` otherwise."""
+        with self._exec_lock:
+            items = sorted(self._exec.items())
+        payload = [p.data if isinstance(p, QuantTokens) else p
+                   for p in self._corpus_parts()]
+        reports: Dict[tuple, AuditReport] = {}
+        for key, exe in items:
+            args = self._warm_args(key, round_cap=0)
+            reports[key] = audit_step(
+                lambda: exe(*args), self._audit_spec(key), label=repr(key),
+                operands=args, corpus=payload, device=self.device)
+        self.audit_reports = reports
+        return reports
 
     @property
     def _stream_bucket(self) -> Tuple[int, int]:

@@ -866,3 +866,186 @@ def test_mesh_engine_on_the_card_fails_over(card):
         assert np.array_equal(c0.topk_scores, c1.topk_scores)
     assert eng.metrics.compiles_after_warmup == 0
     assert eng.metrics.summary()["failovers"] == 1
+
+
+# ---------------------------------------------------------------------------
+# launch shapes as arguments (kernels/tuning.py): every candidate gives the
+# default's bits
+# ---------------------------------------------------------------------------
+
+TUNE_FMTS = [("f32", 0), ("bf16", 0), ("int8", 0), ("residual", 8)]
+
+
+@pytest.mark.parametrize("fmt,Kc", TUNE_FMTS)
+@pytest.mark.parametrize("B,N,L,T,M", [(4, 32, 128, 32, 128),
+                                       (3, 5, 77, 45, 100),
+                                       (2, 7, 200, 64, 128)])
+def test_maxsim_every_block_n_equals_the_default(card, fmt, Kc, B, N, L, T,
+                                                 M):
+    """Each block_n the dense kernel is built for (1, 2, 4) gives the
+    default launch's H bit for bit (N = 5, 7 leave a ragged last block)
+    and the plain version's within tolerance; the op resolves the default
+    (2) from an empty table."""
+    from repro_torch.kernels import tuning
+    gen = torch.Generator(device=card).manual_seed(21)
+    e, m = _reveal_corpus(gen, B * N, L, M, fmt, Kc, True)
+    e, m = corpus_reshape(e, B, N), m.reshape(B, N, L).contiguous()
+    q = _unit(torch.randn((B, T, M), generator=gen, device=card))
+    if fmt == "bf16":
+        q = q.to(torch.bfloat16)
+    tuning.clear()
+    default = ops.maxsim_batch_op(e, m, q)
+    torch.testing.assert_close(default, maxsim_batch_plain(e, m, q),
+                               rtol=RTOL, atol=ATOL)
+    for block_n in (1, 2, 4):
+        assert torch.equal(ops.maxsim_batch_op(e, m, q, block_n=block_n),
+                           default)
+
+
+@pytest.mark.parametrize("fmt,Kc", TUNE_FMTS)
+@pytest.mark.parametrize("F,G,L,M", [(128, 8, 128, 128), (600, 1, 128, 128),
+                                     (37, 3, 200, 100)])
+def test_reveal_every_block_l_equals_the_default(card, fmt, Kc, F, G, L, M):
+    """block_l 64 and 32 give the default launch's (0: by F) vals and stats
+    bit for bit on both reveal ops, for F on either side of 512."""
+    from repro_torch.kernels import tuning
+    gen = torch.Generator(device=card).manual_seed(22)
+    D, TQ = 256, 64
+    e, m = _reveal_corpus(gen, D, L, M, fmt, Kc, True)
+    q = _unit(torch.randn((TQ, M), generator=gen, device=card))
+    if fmt == "bf16":
+        q = q.to(torch.bfloat16)
+    di = torch.randint(0, D, (F,), generator=gen, device=card)
+    ti = torch.randint(0, TQ, (F, G), generator=gen, device=card)
+    nm = torch.rand((F, G), generator=gen, device=card) < 0.5
+    tuning.clear()
+    vals = ops.gather_maxsim_op(e, m, q, di, ti)
+    fv, fs = ops.fused_reveal_op(e, m, q, di, ti, nm)
+    assert torch.equal(fv, vals)
+    torch.testing.assert_close(vals, gather_maxsim_plain(e, m, q, di, ti),
+                               rtol=RTOL, atol=ATOL)
+    for block_l in (64, 32, 0):
+        assert torch.equal(ops.gather_maxsim_op(e, m, q, di, ti,
+                                                block_l=block_l), vals)
+        tv, ts = ops.fused_reveal_op(e, m, q, di, ti, nm, block_l=block_l)
+        assert torch.equal(tv, fv) and torch.equal(ts, fs)
+
+
+def test_tuned_table_entries_reach_the_launch(card):
+    """A recorded entry is what the op launches (its bits equal the
+    default's), and an empty table gives today's launches: the default
+    block_n's shared memory is block_n 2's, block_l 0's is 64's up to 512
+    frontier rows and 32's above."""
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.gather_maxsim import reveal_block_l
+    lib_r = _build.library("reveal.cu")
+    lib_m = _build.library("maxsim.cu")
+    for F in (128, 512, 513, 4096):
+        want = 64 if F <= 512 else 32
+        assert reveal_block_l(F, 0) == want
+        assert (lib_r.colbandit_reveal_smem_bytes(F, 8, 128, 128, 4, 0, 0, 0)
+                == lib_r.colbandit_reveal_smem_bytes(F, 8, 128, 128, 4, 0, 0,
+                                                     want))
+    assert lib_r.colbandit_reveal_smem_bytes(8, 8, 128, 128, 4, 0, 0, 48) == -2
+    sizes = [lib_m.colbandit_maxsim_smem_bytes(128, 128, 4, 0, 0, n)
+             for n in (1, 2, 4)]
+    assert sizes[0] < sizes[1] < sizes[2]
+    assert lib_m.colbandit_maxsim_smem_bytes(128, 128, 4, 0, 0, 3) == -1
+    tuning.clear()
+    assert tuning.lookup("maxsim_batch", dict(B=2, N=8, T=32, L=64, M=64)) \
+        == {"block_n": 2}
+    gen = torch.Generator(device=card).manual_seed(23)
+    e, m = _docs(gen, 16, 64, 64, torch.float32)
+    q = torch.randn((2, 32, 64), generator=gen, device=card)
+    e, m = e.reshape(2, 8, 64, 64), m.reshape(2, 8, 64).contiguous()
+    base = ops.maxsim_batch_op(e, m, q)
+    dims = ops.launch_dims("maxsim_batch", e.shape, q.shape)
+    tuning.record("maxsim_batch", dims, {"block_n": 4})
+    try:
+        assert ops._resolve("maxsim_batch", dims) == {"block_n": 4}
+        assert torch.equal(ops.maxsim_batch_op(e, m, q), base)
+    finally:
+        tuning.clear()
+
+
+def test_launch_shapes_that_do_not_fit_raise_before_the_launch(card):
+    """An unknown block_n / block_l, or a shape whose shared memory exceeds
+    the card's at that shape, raises ValueError before any launch; it never
+    becomes the default."""
+    gen = torch.Generator(device=card).manual_seed(24)
+    e, m = _docs(gen, 8, 16, 32, torch.float32)
+    q = torch.randn((4, 32), generator=gen, device=card)
+    di = torch.zeros((2,), dtype=torch.int64, device=card)
+    ti = torch.zeros((2, 2), dtype=torch.int64, device=card)
+    _build.reset_launches()
+    for bad in (3, 8, 0):
+        with pytest.raises(ValueError, match="block_n"):
+            maxsim_batch_cuda(e[None], m[None], q[None], bad)
+        with pytest.raises(ValueError, match="block_n"):
+            ops.maxsim_batch_op(e[None], m[None], q[None], block_n=bad)
+    for bad in (16, 48, 128):
+        with pytest.raises(ValueError, match="block_l"):
+            gather_maxsim_cuda(e, m, q, di, ti, bad)
+        with pytest.raises(ValueError, match="block_l"):
+            ops.gather_maxsim_op(e, m, q, di, ti, block_l=bad)
+    # L = 20000 f32 rows: the token lists of 1 doc a block fit in shared
+    # memory, those of 4 do not.
+    long_e, long_m = _docs(gen, 4, 20000, 32, torch.float32)
+    lib = _build.library("maxsim.cu")
+    fits = [lib.colbandit_maxsim_smem_bytes(20000, 32, 4, 0, 0, n)
+            <= _build.SHARED_MEM_BYTES for n in (1, 2, 4)]
+    assert fits[0] and not fits[2]
+    with pytest.raises(ValueError, match="shared memory"):
+        maxsim_batch_cuda(long_e[None], long_m[None], q[None], 4)
+    assert not any(_build.LAUNCHES.values())
+    maxsim_batch_cuda(long_e[None], long_m[None], q[None], 1)
+    assert _build.LAUNCHES["maxsim"] == 1
+
+
+def test_autotune_op_times_every_candidate_on_the_card(card):
+    """autotune_op times each candidate of a bucket on the card (CUDA
+    events), records the fastest and returns its timings."""
+    from repro_torch.kernels import tuning
+    tuning.clear()
+    try:
+        for op, dims in (
+                ("maxsim_batch", dict(B=2, N=8, T=32, L=64, M=64)),
+                ("maxsim_batch", dict(B=2, N=8, T=32, L=64, M=64, FMT=2)),
+                ("fused_reveal", dict(B=64, G=8, L=64, M=64, D=128, TQ=64)),
+                ("gather_maxsim", dict(B=64, G=8, L=64, M=64, D=128, TQ=64,
+                                       FMT=4))):
+            best, times = ops.autotune_op(op, dims, repeats=2)
+            assert len(times) == len(tuning.candidates(op, dims))
+            assert all(t > 0 for t in times.values())
+            assert tuning.lookup(op, dims) == best
+    finally:
+        tuning.clear()
+
+
+def test_engine_audit_on_the_card_reads_the_host_only_at_the_loop(card):
+    """A warmed f32 engine passes its audit on the card (the bandit step's
+    reads at run_loop, none in a trip); a step that copies to the host
+    (``.cpu()``, a dispatched ``_to_copy``) fails ``hlo-host-sync``."""
+    from repro_torch.analysis.audit import AuditError
+    ds = make_retrieval_dataset(n_docs=64, doc_len=16, min_doc_len=8,
+                                dim=32, query_len=8, n_queries=4, seed=0)
+    cfg = EngineConfig(batch_size=2, token_buckets=(8,), cand_buckets=(16,
+                       32), max_k=4, bandit_min_candidates=32, audit=True)
+    eng = RetrievalEngine(ds.doc_embs, ds.doc_mask, cfg, device=card)
+    eng.warmup()
+    reports = eng.audit()
+    bandit = reports[("step", "bandit", 8, 32)]
+    assert set(bandit.host_reads) == {"core/frontier.py::run_loop"}
+    assert bandit.host_reads["core/frontier.py::run_loop"] == bandit.trips + 1
+    key = ("step", "dense", 8, 16)
+    real = eng._exec[key]
+
+    def leaky(*args):
+        out = real(*args)
+        out[0].cpu()
+        return out
+    eng._exec[key] = leaky
+    with pytest.raises(AuditError, match="hlo-host-sync") as err:
+        eng.audit()
+    assert repr(key) in str(err.value) and "copy to the host" in str(
+        err.value)

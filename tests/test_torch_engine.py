@@ -281,15 +281,21 @@ def test_engine_serves_bf16_corpus_matching_f32_topk(corpus):
     dict(tuning_table="table.json"),
     dict(audit=True),
 ], ids=["mesh", "routed", "autotune", "tuning_table", "audit"])
-def test_settings_not_ported_raise(corpus, setting):
+def test_settings_not_ported_raise(corpus, setting, tmp_path,
+                                   monkeypatch):
     if "mesh_axes" in setting:
         # Ported: the mesh-resident corpus and routed stage 1 build (their
         # parity tests are tests/test_torch_{sharded,routed}.py).
         eng = _engine(corpus, _dense_cfg(**setting))
         assert eng.corpus.n_shards == 2 and eng.shard_health().all()
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        _engine(corpus, _dense_cfg(**setting))
+    # Ported too: autotuning, the tuning table and the audit build, warm
+    # and run on the CPU (tests/test_torch_{tuning,audit}.py hold them to
+    # the JAX package); none raises NotImplementedError any more.
+    monkeypatch.chdir(tmp_path)
+    eng = _engine(corpus, _dense_cfg(**setting))
+    eng.warmup()
+    assert eng.metrics.compiles_after_warmup == 0
 
 
 def test_off_mesh_settings_raise_as_in_jax(corpus):

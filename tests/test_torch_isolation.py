@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the package passes
-the repository's lint gate."""
+``chip_smoke.py`` or the port's examples) imports JAX or the JAX package,
+and the package passes the repository's lint gate."""
 import ast
 import os
 import subprocess
@@ -20,6 +20,9 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for name in ("torch_quickstart", "torch_serve_retrieval",
+                 "torch_serve_stream"):
+        yield os.path.join(ROOT, "examples", f"{name}.py")
 
 
 def _forbidden(name: str) -> bool:

@@ -1,5 +1,7 @@
 // Host rehearsal program (run.sh): the dense entry points of maxsim.cu on
-// small shapes, every cell held bit for bit to a direct reference (one
+// small shapes at every docs-per-block they are built for (block_n 1, 2
+// and 4, each launch's shared memory equal to the size query's), every
+// cell held bit for bit to a direct reference (one
 // sequential fma chain over m from 0, nan-propagating max over the valid
 // tokens, -3e38 for an all-masked doc), and the masked entry points held to
 // where(tile, reference, 0) in every case, under a random tile mask and a
@@ -118,24 +120,45 @@ int run(const Case& c) {
   const float* cbp = c.kind == kResidual ? cb.data() : nullptr;
   const void* E = c.kind == kF32 ? (const void*)Ef.data()
                                  : (const void*)Eb.data();
-  std::vector<float> got(D * T, 7.f);
-  int rc = quant ? colbandit_maxsim_q(dp, scales, cd, cbp, c.Kc, mask.data(),
-                                      Qp, got.data(), B, N, L, M, T, s_bf16,
-                                      0, nullptr)
-                 : colbandit_maxsim(E, mask.data(), Qp, got.data(), B, N, L,
-                                    M, T, q_bf16, q_bf16, nullptr);
-  const size_t launched = g_smem_max;
-  int bad = rc != 0;
-  for (int i = 0; i < D * T; ++i)
-    if (std::memcmp(&got[i], &want[i], 4)) {
-      if (bad < 5) printf("  cell %d: %.9g want %.9g\n", i, got[i], want[i]);
-      ++bad;
-    }
+  // The dense entry points at every docs-per-block the kernel is built for
+  // (block_n 1, 2, 4): each cell bit-equal, each launch's shared memory
+  // equal to the query's for its block_n.
   const int esz = c.kind == kF32 ? 4 : c.kind == kBf16 ? 2 : 1;
-  const long long smem = colbandit_maxsim_smem_bytes(
-      L, M, esz, quant, c.kind == kResidual ? c.Kc : 0);
-  bad += smem != (long long)launched;
-  const long long barriers = g_barriers;
+  int bad = 0;
+  long long smem = 0, barriers = 0;
+  size_t launched = 0;
+  for (const int block_n : {1, 2, 4}) {
+    std::vector<float> got(D * T, 7.f);
+    g_smem_max = 0;
+    const int rc =
+        quant ? colbandit_maxsim_q(dp, scales, cd, cbp, c.Kc, mask.data(), Qp,
+                                   got.data(), B, N, L, M, T, s_bf16, 0,
+                                   block_n, nullptr)
+              : colbandit_maxsim(E, mask.data(), Qp, got.data(), B, N, L, M, T,
+                                 q_bf16, q_bf16, block_n, nullptr);
+    int bad_n = rc != 0;
+    for (int i = 0; i < D * T; ++i)
+      if (std::memcmp(&got[i], &want[i], 4)) {
+        if (bad_n < 5)
+          printf("  block_n %d cell %d: %.9g want %.9g\n", block_n, i, got[i],
+                 want[i]);
+        ++bad_n;
+      }
+    const long long q = colbandit_maxsim_smem_bytes(
+        L, M, esz, quant, c.kind == kResidual ? c.Kc : 0, block_n);
+    bad_n += q != (long long)g_smem_max;
+    if (bad_n) printf("  block_n %d: FAIL (smem %lld, launched %zu)\n",
+                      block_n, q, g_smem_max);
+    bad += bad_n;
+    if (block_n == 2) {  // the masked kernel's docs per block
+      smem = q;
+      launched = g_smem_max;
+      barriers = g_barriers;
+    }
+  }
+  bad += colbandit_maxsim_smem_bytes(L, M, esz, quant, 0, 3) != -1;
+  int rc = 0;
+  g_smem_max = 0;
 
   // The masked entry point on query 0's N docs, under a random tile mask
   // (density 0.4, tile row 0 all active: doc 1, all-masked, gives -3e38)
@@ -169,7 +192,8 @@ int run(const Case& c) {
         if (std::memcmp(&mg[i * T + t], &w, 4)) ++masked_bad;
       }
   }
-  printf("%-28s B=%d N=%d L=%d T=%d M=%d: %s; bn=%d bt=%d %s (smem %lld, "
+  printf("%-28s B=%d N=%d L=%d T=%d M=%d: %s at block_n 1/2/4; bn=%d bt=%d "
+         "%s (block_n 2: smem %lld, "
          "launched %zu, barriers %lld, cp.async copies of 16/8/4 bytes: "
          "%lld/%lld/%lld)\n",
          c.name, B, N, L, T, M, bad ? "FAIL" : "bit-equal", bn, bt,

@@ -5,8 +5,9 @@
 // reveal_stats' order. Covers docs longer than a chunk, masks with holes,
 // rows that are not 16-byte aligned (copied in 4-, 2- and 1-byte pieces),
 // bf16 rows and queries, int8 and residual rows with clamped codes and
-// indices, G = 0, 1 and 64, and launches large enough for the narrow block
-// shape.
+// indices, G = 0, 1 and 64, and every case at both block shapes (block_l
+// 64 and 32, each launch's shared memory equal to the size query's), with
+// launches small and large enough for either to be the default.
 #include <algorithm>
 #include <cstdio>
 #include <random>
@@ -114,56 +115,71 @@ int run(const Case& c) {
     wstats[f * 3 + 2] = sq;
   }
 
-  std::vector<float> gv(F * G, 7.f), fv(F * G, 7.f), st(F * 3, 7.f);
-  const int q_bf16 = c.kind == kBf16;
-  const void* Qp = q_bf16 ? (const void*)Qb.data() : (const void*)Q.data();
-  int rc;
-  if (!quant) {
-    const void* E = c.kind == kF32 ? (const void*)Ef.data()
-                                   : (const void*)Eb.data();
-    rc = colbandit_gather_maxsim(E, mask.data(), Qp, di.data(), ti.data(),
-                                 gv.data(), F, G, L, M, D, TQ, q_bf16,
-                                 q_bf16, nullptr);
-    rc |= colbandit_fused_reveal(E, mask.data(), Qp, di.data(), ti.data(),
-                                 nm.data(), fv.data(), st.data(), F, G, L, M,
-                                 D, TQ, q_bf16, q_bf16, nullptr);
-  } else {
-    const int s_bf16 = c.kind != kInt8F32Scales;
-    const void* scales = s_bf16 ? (const void*)scb.data()
-                                : (const void*)sc.data();
-    const int32_t* cd = c.kind == kResidual ? codes.data() : nullptr;
-    const float* cbp = c.kind == kResidual ? cb.data() : nullptr;
-    rc = colbandit_gather_maxsim_q(dp, scales, cd, cbp, c.Kc, mask.data(),
-                                   Qp, di.data(), ti.data(), gv.data(), F, G,
-                                   L, M, D, TQ, s_bf16, 0, nullptr);
-    rc |= colbandit_fused_reveal_q(dp, scales, cd, cbp, c.Kc, mask.data(),
-                                   Qp, di.data(), ti.data(), nm.data(),
-                                   fv.data(), st.data(), F, G, L, M, D, TQ,
-                                   s_bf16, 0, nullptr);
-  }
-  int bad = rc != 0;
-  for (int i = 0; i < F * G; ++i)
-    if (std::memcmp(&gv[i], &want[i], 4) || std::memcmp(&fv[i], &want[i], 4)) {
-      if (bad < 5)
-        printf("  cell %d: %.9g %.9g want %.9g\n", i, gv[i], fv[i], want[i]);
-      ++bad;
-    }
-  for (int i = 0; i < F * 3; ++i)
-    if (std::memcmp(&st[i], &wstats[i], 4)) {
-      if (bad < 5) printf("  stat %d: %g want %g\n", i, st[i], wstats[i]);
-      ++bad;
-    }
   const int esz = c.kind == kF32 ? 4 : c.kind == kBf16 ? 2 : 1;
-  const long long smem = colbandit_reveal_smem_bytes(
-      F, G, L, M, esz, quant, c.kind == kResidual ? c.Kc : 0);
-  printf("%-24s D=%d L=%d M=%d F=%d G=%d: %s (smem %lld, launched %zu, "
-         "barriers %lld, cp.async copies of 16/8/4 bytes: %lld/%lld/%lld)\n",
-         c.name, D, L, M, F, G, bad ? "FAIL" : "bit-equal", smem,
-         g_smem_max, g_barriers, g_async_copies[16], g_async_copies[8],
-         g_async_copies[4]);
-  g_smem_max = 0;
-  g_barriers = 0;
-  std::memset(g_async_copies, 0, sizeof(g_async_copies));
+  int bad = 0;
+  long long smem_wide = 0;  // the two shapes stage different buffers
+  for (const int block_l : {64, 32}) {
+    g_smem_max = 0;
+    std::vector<float> gv(F * G, 7.f), fv(F * G, 7.f), st(F * 3, 7.f);
+    const int q_bf16 = c.kind == kBf16;
+    const void* Qp = q_bf16 ? (const void*)Qb.data() : (const void*)Q.data();
+    int rc;
+    if (!quant) {
+      const void* E = c.kind == kF32 ? (const void*)Ef.data()
+                                     : (const void*)Eb.data();
+      rc = colbandit_gather_maxsim(E, mask.data(), Qp, di.data(), ti.data(),
+                                   gv.data(), F, G, L, M, D, TQ, q_bf16,
+                                   q_bf16, block_l, nullptr);
+      rc |= colbandit_fused_reveal(E, mask.data(), Qp, di.data(), ti.data(),
+                                   nm.data(), fv.data(), st.data(), F, G, L, M,
+                                   D, TQ, q_bf16, q_bf16, block_l, nullptr);
+    } else {
+      const int s_bf16 = c.kind != kInt8F32Scales;
+      const void* scales = s_bf16 ? (const void*)scb.data()
+                                  : (const void*)sc.data();
+      const int32_t* cd = c.kind == kResidual ? codes.data() : nullptr;
+      const float* cbp = c.kind == kResidual ? cb.data() : nullptr;
+      rc = colbandit_gather_maxsim_q(dp, scales, cd, cbp, c.Kc, mask.data(),
+                                     Qp, di.data(), ti.data(), gv.data(), F, G,
+                                     L, M, D, TQ, s_bf16, 0, block_l, nullptr);
+      rc |= colbandit_fused_reveal_q(dp, scales, cd, cbp, c.Kc, mask.data(),
+                                     Qp, di.data(), ti.data(), nm.data(),
+                                     fv.data(), st.data(), F, G, L, M, D, TQ,
+                                     s_bf16, 0, block_l, nullptr);
+    }
+    bad += rc != 0;
+    for (int i = 0; i < F * G; ++i)
+      if (std::memcmp(&gv[i], &want[i], 4) ||
+          std::memcmp(&fv[i], &want[i], 4)) {
+        if (bad < 5)
+          printf("  cell %d: %.9g %.9g want %.9g\n", i, gv[i], fv[i], want[i]);
+        ++bad;
+      }
+    for (int i = 0; i < F * 3; ++i)
+      if (std::memcmp(&st[i], &wstats[i], 4)) {
+        if (bad < 5) printf("  stat %d: %g want %g\n", i, st[i], wstats[i]);
+        ++bad;
+      }
+    const long long smem = colbandit_reveal_smem_bytes(
+        F, G, L, M, esz, quant, c.kind == kResidual ? c.Kc : 0, block_l);
+    // G = 0 launches nothing; otherwise the launch took what the query says.
+    bad += G > 0 && smem != (long long)g_smem_max;
+    if (block_l == 64) smem_wide = smem;
+    else bad += smem == smem_wide;
+    const bool is_default =
+        block_l == (F > 512 ? 32 : 64) &&
+        smem == colbandit_reveal_smem_bytes(F, G, L, M, esz, quant,
+                                            c.kind == kResidual ? c.Kc : 0, 0);
+    printf("%-24s D=%d L=%d M=%d F=%d G=%d block_l=%d%s: %s (smem %lld, "
+           "launched %zu, barriers %lld, cp.async copies of 16/8/4 bytes: "
+           "%lld/%lld/%lld)\n",
+           c.name, D, L, M, F, G, block_l, is_default ? " (default)" : "",
+           bad ? "FAIL" : "bit-equal", smem, g_smem_max, g_barriers,
+           g_async_copies[16], g_async_copies[8], g_async_copies[4]);
+    g_smem_max = 0;
+    g_barriers = 0;
+    std::memset(g_async_copies, 0, sizeof(g_async_copies));
+  }
   return bad;
 }
 
@@ -191,9 +207,13 @@ int main() {
   int bad = 0;
   for (const Case& c : cases) bad += run(c) != 0;
   const long long too_big = colbandit_reveal_smem_bytes(8, 65, 128, 128, 4,
-                                                        0, 0);
-  printf("G=65: smem bytes %lld (want -1)\n", too_big);
+                                                        0, 0, 0);
+  const long long no_shape = colbandit_reveal_smem_bytes(8, 8, 128, 128, 4,
+                                                         0, 0, 48);
+  printf("G=65: smem bytes %lld (want -1); block_l=48: %lld (want -2)\n",
+         too_big, no_shape);
   bad += too_big != -1;
+  bad += no_shape != -2;
   printf(bad ? "REHEARSAL FAILED\n" : "rehearsal ok\n");
   return bad != 0;
 }
