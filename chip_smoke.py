@@ -9,7 +9,9 @@ Phases, in order:
      (ptxas registers and spills per instantiation; a spill in ``maxsim.cu``
      fails the run);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-     at the serving path's shapes plus edge cases, with timings and bounds;
+     at the serving path's shapes plus edge cases (G = 96 and 128 query
+     rows a frontier row, residual codebooks of Kc = 1,024), with timings
+     and bounds;
      Each kernel with a compressed-corpus (``_q``) entry point is also run on
      int8 and residual corpora and held to its float32 twin on the
      dequantized corpus bit for bit; every reveal cell is held to the dense
@@ -64,7 +66,13 @@ Phases, in order:
      launch shape timed at the serving buckets, an autotuned engine held
      to an untuned one bit for bit and its table reloaded, ``audit=True``
      engines (f32, int8, the S = 4 mesh, routed) with their reports, and
-     a host copy in a step failing the audit (see ``tuning_and_audit``).
+     a host copy in a step failing the audit (see ``tuning_and_audit``);
+ 12. LM serving and the late-interaction encoder at Qwen2.5-3B's full
+     width: ``generate`` timed at B = 8 (prefill, decode per step, bounds),
+     decode held to ``forward_train`` in float32 (Qwen2.5-3B at full depth,
+     gemma2-27b's first layer pair across the ring's wrap), the encoder on
+     the card held to the CPU, and tokens to Col-Bandit's top-K through
+     ``serve_queries`` on the encoder's embeddings (see ``lm_serving``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -95,6 +103,10 @@ K = 5
 STREAM_SEEDS = 3        # phase 7: each query under this many seeds
 TRIP_LIMIT = 4          # phase 7: trips per streaming slice
 HARNESS_QUERIES = 2     # phase 8: queries per method (cut to fit ~60 s)
+# Phase 12: decode logits against forward_train over 36 float32 layers of
+# products summed in another order (JAX's own test: 1e-4 at 2 layers of
+# width 64), and card against CPU embeddings (unit rows, 2 layers).
+LM_ATOL, ENC_ATOL = 1e-3, 1e-5
 NEG = float(np.float32(-3e38))   # the all-masked sentinel as float32
 PAD = 512                        # spin kernels that open every profile
 
@@ -1176,6 +1188,300 @@ def tuning_and_audit(dev, index, ds, cand, smi, t_start):
     return served
 
 
+def lm_serving(dev, profiled_line, smi, t_start):
+    """12. LM serving and the late-interaction encoder (``repro_torch.models``,
+    ``repro_torch.serve.lm``: plain PyTorch; the JAX package runs these in
+    ``jnp``, no Pallas kernel), bf16 weights unless stated, every weight
+    drawn on ``dev`` from a seeded ``torch.Generator``.
+
+    (a) Qwen2.5-3B at full width and depth (36 layers, 3.40 B parameters,
+        the head untied as in JAX): ``generate`` at B = 8, a 512-token
+        prompt and 32 new tokens (float32 cache, ``generate``'s default);
+        prefill ms and decode ms per step (CUDA events), tokens/s (host
+        clock around ``generate``), peak memory, and the byte and flop
+        bounds beside them; one profiled prefill and decode step (device
+        busy time and idle share).
+    (b) Consistency in float32 weights and cache at B = 2: Qwen2.5-3B at
+        full depth (a 64-token prompt), and gemma2-27b at full width with
+        depth cut to one (local, global) pair (B = 1, a 4,100-token prompt,
+        so the window-4,096 ring wraps during decode); 4 decode steps each,
+        each step's logits held to ``forward_train``'s last row of the grown
+        sequence within LM_ATOL, and its argmax to that row's wherever the
+        row's top-2 gap exceeds 2 * LM_ATOL.
+    (c) The card against the CPU: Qwen2.5-3B at full width, 2 layers,
+        float32, the same weights on both: ``encode_tokens`` equal within
+        ENC_ATOL, masked rows exactly 0.
+    (d) Tokens to top-K: (a)'s model with an LI head encodes 2,048 docs
+        (random ids from seed 0, lengths 32-128, padded to L = 128) and 16
+        queries (T = 32); a float32 ``TokenIndex`` of the embeddings serves
+        dense, bandit fused and bandit chain (``BanditConfig(k=5)``, k' =
+        10, 256 candidates). Chain == fused (ids, reveal fractions) exactly;
+        overlap@5 against dense, reveal fraction and encode rates reported
+        without a gate (random-weight embeddings are not the paper's
+        distribution, so its 0.9 bar does not apply).
+
+    Returns the kernel launches of (d)'s serving calls."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BanditConfig
+    from repro_torch.core.metrics import overlap_at_k
+    from repro_torch.kernels import _build
+    from repro_torch.models.colbert import encode_tokens, init_li_head
+    from repro_torch.models.transformer import (DecoderLM, forward_prefill,
+                                                forward_train, init_lm)
+    from repro_torch.retrieval.index import TokenIndex
+    from repro_torch.retrieval.pipeline import serve_queries
+    from repro_torch.serve import generate, serve_step
+
+    t_phase = time.perf_counter()
+    resident = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    bw, _ = peaks(torch.cuda.get_device_name(0))
+    bf16_peak = 989e12        # dense bf16 tensor-core peak, H100 SXM
+    gen = torch.Generator(device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def event_ms(fn):
+        """Device-ordered ms of one call of fn (CUDA events), and its
+        result."""
+        if dev.type != "cuda":
+            t = time.perf_counter()
+            out = fn()
+            return (time.perf_counter() - t) * 1e3, out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    # (a) Qwen2.5-3B, bf16 ----------------------------------------------------
+    cfg = get_config("qwen2.5-3b")
+    t = time.perf_counter()
+    model = init_lm(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"phase 12a qwen2.5-3b: {n_params} parameters (the config's "
+          f"analytic count {cfg.param_count()} takes the final norm twice), "
+          f"{w_bytes / 1e9:.2f} GB bf16, drawn on {dev} in "
+          f"{time.perf_counter() - t:.1f} s [{smi}]", flush=True)
+    B, S, NEW = 8, 512, 32
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen.manual_seed(1),
+                           device=dev, dtype=torch.int32)
+    generate(model, cfg, prompt[:, :16], max_new_tokens=2)     # warm-up
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t = time.perf_counter()
+    out = generate(model, cfg, prompt, max_new_tokens=NEW)
+    sync()
+    gen_s = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0)
+    if out.shape != (B, S + NEW) or not torch.equal(out[:, :S], prompt) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        fail(f"phase 12a: generate gave {tuple(out.shape)}, ids "
+             f"{int(out.min())}..{int(out.max())}")
+    with torch.no_grad():
+        pre_ms, (logits, cache) = event_ms(
+            lambda: forward_prefill(model, cfg, prompt, S + NEW,
+                                    cache_dtype=torch.float32))
+        if not torch.isfinite(logits).all():
+            fail("phase 12a: prefill logits are not finite")
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        step_ms = []
+        for step in range(NEW):
+            ms, (logits, cache) = event_ms(
+                lambda: serve_step(model, cfg, tok, S + step, cache))
+            step_ms.append(ms)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+    if not torch.isfinite(logits).all():
+        fail("phase 12a: decode logits are not finite")
+    cache_bytes = sum(st.k.numel() * st.k.element_size() * 2
+                      for st in cache.values())
+    body = w_bytes - 2 * cfg.vocab * cfg.d_model * 2   # blocks only
+    dec_bytes = w_bytes - (cfg.vocab - B) * cfg.d_model * 2 + cache_bytes
+    dec_flops = 2 * (body // 2 + cfg.d_model * cfg.vocab) * B
+    pre_flops = (2 * (body // 2) * B * S + 2 * cfg.d_model * cfg.vocab * B
+                 + 4 * cfg.n_layers * B * S * S * cfg.q_dim // 2)
+    bound = {k: (max(nb / bw, fl / bf16_peak) * 1e3,
+                 "bytes" if nb / bw >= fl / bf16_peak else "operations")
+             for k, (nb, fl) in (("prefill", (w_bytes, pre_flops)),
+                                 ("decode", (dec_bytes, dec_flops)))}
+    dec_med = statistics.median(step_ms)
+    print(f"phase 12a generate B={B} prompt={S} new={NEW}: "
+          f"{gen_s * 1e3:.1f} ms end to end = {B * NEW / gen_s:.1f} new "
+          f"tokens/s; prefill {pre_ms:.2f} ms (bound {bound['prefill'][0]:.2f}"
+          f" ms by {bound['prefill'][1]}); decode median {dec_med:.3f} ms per "
+          f"step, min {min(step_ms):.3f}, max {max(step_ms):.3f} (bound "
+          f"{bound['decode'][0]:.3f} ms by {bound['decode'][1]}: weights "
+          f"{w_bytes / 1e9:.2f} GB / {bw / 1e12} TB/s = "
+          f"{w_bytes / bw * 1e3:.3f} ms); {B / dec_med * 1e3:.1f} tokens/s "
+          f"decoding; peak memory {(peak - resident) / 1e9:.2f} GB above the "
+          f"{resident / 1e9:.2f} GB earlier phases left resident [{smi}]",
+          flush=True)
+    with torch.no_grad():
+        print(profiled_line("phase 12a prefill", lambda: forward_prefill(
+            model, cfg, prompt, S + NEW, cache_dtype=torch.float32), pre_ms),
+            f"[{smi}]", flush=True)
+        # The last step again: it rewrites its own slot.
+        print(profiled_line("phase 12a decode step", lambda: serve_step(
+            model, cfg, tok, S + NEW - 1, cache), dec_med), f"[{smi}]",
+            flush=True)
+
+    # (d) tokens to top-K, on (a)'s model -------------------------------------
+    head = init_li_head(cfg, seed=2, dtype=torch.bfloat16, device=dev)
+    n_docs, L, nq, T, chunk = 2048, 128, 16, 32, 256
+    g0 = torch.Generator(device="cpu").manual_seed(0)
+    doc_ids = torch.randint(0, cfg.vocab, (n_docs, L), generator=g0)
+    lens = torch.randint(32, L + 1, (n_docs,), generator=g0)
+    doc_mask = torch.arange(L)[None, :] < lens[:, None]
+    doc_ids[~doc_mask] = 0
+    q_ids = torch.randint(0, cfg.vocab, (nq, T), generator=g0)
+    with torch.no_grad():
+        sync()
+        t = time.perf_counter()
+        embs = torch.cat([encode_tokens(model, head, cfg,
+                                        doc_ids[i:i + chunk],
+                                        doc_mask[i:i + chunk])[0]
+                          for i in range(0, n_docs, chunk)])
+        sync()
+        docs_s = time.perf_counter() - t
+        t = time.perf_counter()
+        q_emb = encode_tokens(model, head, cfg, q_ids,
+                              torch.ones((nq, T), dtype=torch.bool))[0]
+        sync()
+        q_s = time.perf_counter() - t
+    del model
+    if embs.shape != (n_docs, L, cfg.li_dim) or not torch.isfinite(
+            embs).all() or embs[~doc_mask.to(dev)].any():
+        fail("phase 12d: malformed doc embeddings")
+    index = TokenIndex(doc_embs=embs.float().contiguous(),
+                       doc_mask=doc_mask.to(dev),
+                       doc_lens=lens.to(device=dev, dtype=torch.int64))
+    queries = q_emb.float().contiguous()
+    print(f"phase 12d encode: {n_docs} docs (L={L}, {int(lens.sum())} valid "
+          f"tokens) in {docs_s * 1e3:.1f} ms = {n_docs / docs_s:.1f} docs/s; "
+          f"{nq} queries (T={T}) in {q_s * 1e3:.1f} ms = {nq / q_s:.1f} "
+          f"queries/s [{smi}]", flush=True)
+    calls = {"dense": dict(flavor="dense"),
+             "fused": dict(flavor="bandit", engine="pooled"),
+             "chain": dict(flavor="bandit", engine="pooled_chain")}
+    res, launches = {}, {}
+    for label, kw in calls.items():
+        _build.reset_launches()
+        sync()
+        t = time.perf_counter()
+        res[label] = serve_queries(index, queries, k=K, kprime=10,
+                                   max_candidates=MAX_CANDIDATES,
+                                   bandit=BanditConfig(k=K), seed=SEED,
+                                   device=dev, **kw)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        launches[label] = dict(_build.LAUNCHES)
+        r = res[label]
+        print(f"phase 12d serve {label}: {ms:.1f} ms per batch of {nq}; "
+              f"launches {launches[label]}; mean reveal fraction "
+              f"{r.reveal_fraction.mean():.4f}; stats {r.stats.tolist()} "
+              f"[{smi}]", flush=True)
+        if r.topk_ids.shape != (nq, K) or not np.isfinite(
+                r.topk_scores[r.topk_ids >= 0]).all():
+            fail(f"phase 12d {label}: malformed result")
+    for label, kname in (("dense", "maxsim"), ("fused", "fused_reveal"),
+                         ("chain", "gather_maxsim")):
+        if not launches[label][kname]:
+            fail(f"phase 12d {label}: the {kname} kernel was never launched")
+    if not (np.array_equal(res["fused"].topk_ids, res["chain"].topk_ids)
+            and np.array_equal(res["fused"].reveal_fraction,
+                               res["chain"].reveal_fraction)):
+        fail("phase 12d: chain and fused differ in ids or reveal fractions")
+    ov = float(overlap_at_k(torch.as_tensor(res["fused"].topk_ids),
+                            torch.as_tensor(res["dense"].topk_ids)).mean())
+    print(f"phase 12d: chain == fused (ids, reveal fractions); overlap@{K} "
+          f"of bandit with dense {ov:.4f} (reported, no gate); mean reveal "
+          f"fraction {res['fused'].reveal_fraction.mean():.4f} [{smi}]",
+          flush=True)
+    del index, embs, queries
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) consistency, float32 ------------------------------------------------
+    def consistency(label, cfg_b, Bb, Sb):
+        """Prefill Sb tokens, 4 decode steps; each step against
+        forward_train on the grown sequence."""
+        model_b = init_lm(cfg_b, seed=3, dtype=torch.float32, device=dev)
+        toks = torch.randint(0, cfg_b.vocab, (Bb, Sb),
+                             generator=gen.manual_seed(4), device=dev)
+        err, flips, checked = 0.0, 0, 0
+        with torch.no_grad():
+            last, cache_b = forward_prefill(model_b, cfg_b, toks, Sb + 4,
+                                            cache_dtype=torch.float32)
+            seq = toks
+            cur = torch.argmax(last, -1)
+            for step in range(4):
+                dec, cache_b = serve_step(model_b, cfg_b, cur, Sb + step,
+                                          cache_b)
+                seq = torch.cat([seq, cur[:, None]], dim=1)
+                ref = forward_train(model_b, cfg_b, seq)[:, -1]
+                err = max(err, float((dec - ref).abs().max()))
+                top2 = torch.topk(ref, 2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_ATOL
+                same = torch.argmax(dec, -1) == torch.argmax(ref, -1)
+                checked += int(clear.sum())
+                flips += int((clear & ~same).sum())
+                cur = torch.argmax(dec, -1)
+        if err > LM_ATOL or flips:
+            fail(f"phase 12b {label}: max |decode - forward_train| {err:.3g}"
+                 f" (atol {LM_ATOL}), {flips} greedy ids differ")
+        print(f"phase 12b {label} f32 B={Bb} prompt={Sb}: 4 decode steps "
+              f"== forward_train's last row, max_abs_err {err:.3g} (atol "
+              f"{LM_ATOL}); greedy ids equal on {checked} of {4 * Bb} steps "
+              f"with a top-2 gap > {2 * LM_ATOL} [{smi}]", flush=True)
+
+    consistency(f"qwen2.5-3b {cfg.n_layers} layers", cfg, 2, 64)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    gemma = get_config("gemma2-27b")
+    gemma2 = dataclasses.replace(gemma, n_layers=2)    # one (local, global)
+    consistency(f"gemma2-27b full width, 2 of {gemma.n_layers} layers, "
+                f"window {gemma.sliding_window}", gemma2, 1,
+                gemma.sliding_window + 4)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the card against the CPU, float32 -----------------------------------
+    cfg_c = dataclasses.replace(cfg, n_layers=2)
+    model_c = init_lm(cfg_c, seed=5, dtype=torch.float32, device=dev)
+    head_c = init_li_head(cfg_c, seed=6, dtype=torch.float32, device=dev)
+    cpu_model = DecoderLM(cfg_c, torch.float32, "cpu")
+    cpu_model.load_state_dict(model_c.state_dict())
+    cpu_head = copy.deepcopy(head_c).to("cpu")
+    g5 = torch.Generator(device="cpu").manual_seed(5)
+    toks = torch.randint(0, cfg_c.vocab, (2, 64), generator=g5)
+    mask = torch.arange(64)[None, :] < torch.tensor([[64], [40]])
+    with torch.no_grad():
+        on_card = encode_tokens(model_c, head_c, cfg_c, toks, mask)[0].cpu()
+        on_cpu = encode_tokens(cpu_model, cpu_head, cfg_c, toks, mask)[0]
+    err = float((on_card - on_cpu).abs().max())
+    if err > ENC_ATOL or on_card[~mask].any() or on_cpu[~mask].any():
+        fail(f"phase 12c: card vs CPU max_abs_err {err:.3g} (atol "
+             f"{ENC_ATOL}) or a masked row is not 0")
+    print(f"phase 12c encode_tokens qwen2.5-3b full width, 2 layers, f32: "
+          f"card == CPU within atol {ENC_ATOL} (max_abs_err {err:.3g}); "
+          f"masked rows 0 [{smi}]", flush=True)
+    del model_c, head_c
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {kname: sum(run[kname] for run in launches.values())
+            for kname in launches["dense"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -1373,23 +1679,30 @@ def main() -> int:
                   flush=True)
 
     # gather_maxsim / fused_reveal: stacked (B*N, L, M) candidates and
-    # (B*T, M) query tokens, frontier rows F with G tokens each.
-    D, TQ = 16 * 256, 16 * 32
+    # (B*T, M) query tokens, frontier rows F with G tokens each. G = 96 and
+    # 128 draw from one query of T = 128 tokens (the kernels walk G in
+    # chunks of 64 rows).
+    D, TQ, T_LONG = 16 * 256, 16 * 32, 128
     reveal_cases = [("round", 128, 8, 128, 128, torch.float32, "random"),
                     ("init", 4096, 1, 128, 128, torch.float32, "random"),
                     ("bf16", 128, 8, 128, 128, torch.bfloat16, "random"),
                     ("F=1", 1, 8, 128, 128, torch.float32, "random"),
                     ("odd", 37, 3, 77, 100, torch.float32, "random"),
                     ("new-none", 128, 8, 128, 128, torch.float32, "none"),
-                    ("G=64", 64, 64, 128, 128, torch.float32, "random")]
+                    ("G=64", 64, 64, 128, 128, torch.float32, "random"),
+                    ("G=96", 96, 96, 128, 128, torch.float32, "random"),
+                    ("G=128", 32, 128, 128, 128, torch.float32, "random"),
+                    ("G=128 bf16", 32, 128, 77, 100, torch.bfloat16,
+                     "random")]
     for label, F, G, L, M, dt, fresh in reveal_cases:
         e, m = corpus_like(gen, D, L, M, dt, min(32, L), dead=(3, 5))
-        qt = unit_rows(gen, (TQ, M)).to(dt)
+        tq = T_LONG if G > 64 else TQ
+        qt = unit_rows(gen, (tq, M)).to(dt)
         sets = []
         for _ in range(8):   # rotate selections so a launch finds its docs cold
             di = torch.randint(0, D, (F,), generator=gen, device="cuda")
             di[0] = 3                                   # an all-masked doc
-            ti = torch.randint(0, TQ, (F, G), generator=gen, device="cuda")
+            ti = torch.randint(0, tq, (F, G), generator=gen, device="cuda")
             nm = (torch.rand((F, G), generator=gen, device="cuda") < 0.7
                   if fresh == "random" else
                   torch.zeros((F, G), dtype=torch.bool, device="cuda"))
@@ -1416,13 +1729,20 @@ def main() -> int:
               f"stats={err_s:.3g} gather={err_g:.3g} ok (rtol={RTOL}, "
               f"atol={ATOL}); fused vals == gather vals == maxsim cells",
               flush=True)
-        if label not in ("round", "init"):
-            continue
         it = [0]
 
         def nxt():
             it[0] += 1
             return sets[it[0] % len(sets)]
+
+        if label in ("G=64", "G=96", "G=128"):   # ceil(G / 64) doc walks
+            dms = device_ms(lambda: fused_reveal_cuda(e, m, qt, *nxt()),
+                            "reveal_kernel<DenseRows")
+            print(f"timing fused_reveal {label} F={F}: cold device {dms:.4f} "
+                  f"ms, {dms / F * 1e3:.3f} us per frontier row [{smi}]",
+                  flush=True)
+        if label not in ("round", "init"):
+            continue
 
         valid, valid_u, docs_u, toks_u = reveal_reads(sets, m)
         esz = e.element_size()
@@ -1454,6 +1774,12 @@ def main() -> int:
                   f"{json.dumps(rec)}", flush=True)
             if label == "round":
                 records[kname] = rec
+    lo, hi = 0.0092, 0.0101      # PERF.md: the round before G chunks, cold ms
+    for kname in ("fused_reveal", "gather_maxsim"):
+        dms = records[kname]["device_ms"]
+        print(f"phase 3 round launch (F=128, G=8) {kname}: cold device "
+              f"{dms:.4f} ms against PERF.md's {lo}-{hi} (within 10 %: "
+              f"{0.9 * lo <= dms <= 1.1 * hi}) [{smi}]", flush=True)
 
     # 3b. the _q kernels on compressed corpora: against the plain version
     # (same tolerance) and against the f32 kernel on the dequantized corpus
@@ -1487,7 +1813,10 @@ def main() -> int:
     def dequant_ops(qt, valid, M):
         return valid * M * (2 if qt.codes is not None else 1)
 
-    q_formats = [("int8", 0), ("residual", 8), ("residual", 1)]
+    # Kc = 1,024 is beyond the codebook either layout stages: the kernels
+    # read it from global memory.
+    q_formats = [("int8", 0), ("residual", 8), ("residual", 1),
+                 ("residual", 1024)]
     maxsim_q_cases = [("slice", 16, 256, 128, 32, 128),
                       ("odd", 3, 5, 77, 45, 100),
                       ("holes T=64", 2, 9, 200, 64, 100)]
@@ -1535,19 +1864,24 @@ def main() -> int:
                       ("F=1", 1, 8, 128, 128, "random"),
                       ("odd", 37, 3, 77, 100, "random"),
                       ("new-none", 128, 8, 128, 128, "none"),
-                      ("G=64", 64, 64, 128, 128, "random")]
+                      ("G=64", 64, 64, 128, 128, "random"),
+                      ("G=96", 96, 96, 128, 128, "random"),
+                      ("G=128", 32, 128, 77, 100, "random")]
     for fmt, Kc in q_formats:
         for label, F, G, L, M, fresh in reveal_q_cases:
             if Kc == 1 and label not in ("odd", "round"):
                 continue
+            if Kc == 1024 and label in ("F=1", "new-none", "G=64"):
+                continue
             qt, m = quant_like(D, L, M, fmt, Kc, dead=(3, 5))
             dense = dequantize(qt)
-            qtab = unit_rows(gen, (TQ, M))
+            tq = T_LONG if G > 64 else TQ
+            qtab = unit_rows(gen, (tq, M))
             sets = []
             for _ in range(8):
                 di = torch.randint(0, D, (F,), generator=gen, device="cuda")
                 di[0] = 3                               # an all-masked doc
-                ti = torch.randint(0, TQ, (F, G), generator=gen,
+                ti = torch.randint(0, tq, (F, G), generator=gen,
                                    device="cuda")
                 nm = (torch.rand((F, G), generator=gen, device="cuda") < 0.7
                       if fresh == "random" else
@@ -1618,6 +1952,30 @@ def main() -> int:
                       f"{json.dumps(rec)}", flush=True)
                 if label == "round" and fmt == "int8":
                     records[kname] = rec
+
+    # A staged codebook's cost: the residual round launch at Kc = 256 (a
+    # 135 KB codebook, staged by every block) beside Kc = 8 and 1,024 above.
+    qt, m = quant_like(D, 128, 128, "residual", 256, dead=(3, 5))
+    qtab = unit_rows(gen, (TQ, 128))
+    sets = [(torch.randint(0, D, (128,), generator=gen, device="cuda"),
+             torch.randint(0, TQ, (128, 8), generator=gen, device="cuda"),
+             torch.rand((128, 8), generator=gen, device="cuda") < 0.7)
+            for _ in range(8)]
+    vals, stats = fused_reveal_q_cuda(qt, m, qtab, *sets[0])
+    if not torch.equal(vals, fused_reveal_cuda(dequantize(qt), m, qtab,
+                                               *sets[0])[0]):
+        fail("residual Kc=256: fused_reveal_q differs from its f32 twin")
+    it = [0]
+
+    def nxt256():
+        it[0] += 1
+        return sets[it[0] % len(sets)]
+
+    dms = device_ms(lambda: fused_reveal_q_cuda(qt, m, qtab, *nxt256()),
+                    "reveal_kernel<QuantRows")
+    print(f"timing fused_reveal_q residual Kc=256 (staged) round F=128 G=8: "
+          f"cold device {dms:.4f} ms; == its f32 twin bit for bit [{smi}]",
+          flush=True)
 
     # 3c. the tile-masked kernels, in every format: against the plain version
     # (same tolerance) and against where(tile, maxsim twin, 0) bit for bit.
@@ -2402,6 +2760,13 @@ def main() -> int:
     served = tuning_and_audit(torch.device("cuda"), index, ds, cand, smi,
                               t_start)
     print(f"phase 11: launches in the served run {dict(served)}",
+          flush=True)
+    for kname, n in served.items():
+        records[kname]["launches"] += n
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 12. LM serving and the late-interaction encoder -------------------------
+    served = lm_serving(torch.device("cuda"), profiled_line, smi, t_start)
+    print(f"phase 12: launches in the served runs {dict(served)}",
           flush=True)
     for kname, n in served.items():
         records[kname]["launches"] += n

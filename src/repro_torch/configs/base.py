@@ -1,19 +1,48 @@
-"""Retrieval and Col-Bandit config dataclasses (the serving subset of
+"""Retrieval, Col-Bandit and LM config dataclasses (the serving subset of
 ``repro.configs.base``). Field names and defaults match the JAX package, so
-``BanditConfig(**dataclasses.asdict(jax_cfg))`` carries a config across."""
+``BanditConfig(**dataclasses.asdict(jax_cfg))`` and
+``LMConfig(**dataclasses.asdict(jax_cfg))`` carry a config across."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One serving input-shape cell (the retrieval fields only)."""
+    """One input-shape cell: the retrieval fields and the LM ones (the GNN
+    and recsys fields come with their models)."""
     name: str
     kind: str
     batch: int = 0
     n_candidates: int = 0
+    seq_len: int = 0
+    global_batch: int = 0
+
+
+def _shape(spec) -> ShapeSpec:
+    """A ``ShapeSpec``, or one from ``dataclasses.asdict`` of the JAX
+    package's: fields this package does not have must be unset (0)."""
+    if isinstance(spec, ShapeSpec):
+        return spec
+    names = {f.name for f in dataclasses.fields(ShapeSpec)}
+    extra = {k: v for k, v in spec.items() if k not in names and v}
+    if extra:
+        raise ValueError(f"ShapeSpec: fields {sorted(extra)} are not "
+                         "ported (GNN / recsys shapes)")
+    return ShapeSpec(**{k: v for k, v in spec.items() if k in names})
+
+
+LM_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="train_4k", kind="train", seq_len=4096, global_batch=256),
+    ShapeSpec(name="prefill_32k", kind="prefill", seq_len=32768,
+              global_batch=32),
+    ShapeSpec(name="decode_32k", kind="decode", seq_len=32768,
+              global_batch=128),
+    ShapeSpec(name="long_500k", kind="decode", seq_len=524288,
+              global_batch=1),
+)
 
 
 # Paper-native retrieval shapes: batched late-interaction reranking.
@@ -52,3 +81,75 @@ class BanditConfig:
     # block-synchronous variant
     block_docs: int = 8              # B docs refined per round
     block_tokens: int = 8            # G tokens revealed per selected doc
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    experts_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_capacity_factor: float = 1.25
+    # attention flavor
+    sliding_window: Optional[int] = None           # SWA on every layer
+    local_global_alternating: bool = False         # gemma2: even layers local
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    act: str = "silu"
+    attn_q_chunk: int = 0     # >0: memory-efficient chunked attention
+    family: str = "lm"
+    shapes: Tuple[ShapeSpec, ...] = LM_SHAPES
+    # late-interaction head (paper integration): project d_model -> li_dim
+    li_dim: int = 128
+
+    def __post_init__(self):
+        # asdict() of a JAX config turns its shapes into dicts.
+        object.__setattr__(self, "shapes",
+                           tuple(_shape(s) for s in self.shapes))
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head)."""
+        d, ff = self.d_model, self.d_ff
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        if self.moe:
+            e_ff = self.moe_d_ff or ff
+            mlp = self.n_experts * 3 * d * e_ff + d * self.n_experts
+        else:
+            mlp = 3 * d * ff
+        norms = 2 * d
+        block = attn + mlp + norms
+        emb = self.vocab * d
+        head = self.vocab * d
+        return emb + self.n_layers * block + norms + head
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.moe:
+            return self.param_count()
+        d, e_ff = self.d_model, (self.moe_d_ff or self.d_ff)
+        full = self.param_count()
+        all_experts = self.n_experts * 3 * d * e_ff
+        active = self.experts_top_k * 3 * d * e_ff
+        return full - self.n_layers * (all_experts - active)

@@ -24,7 +24,8 @@ __device__ __forceinline__ float nan_max(float acc, float x) {
 // every corpus kind. Bodies copy rows raw (cp.async): `raw(r)` is the row's
 // M stored elements of type `Elem`, with `scale(r)` and `code(r)` beside it
 // (`kScaled`), and `at` turns a stored element into its value. `kCodebook`
-// says whether the body must stage the codebook in shared memory.
+// says whether rows add a codebook row (staged in shared memory where the
+// layout has room for it, else read from global memory).
 //
 // DenseRows: a float32 or bf16 corpus (D, L, M).
 template <typename TE>
@@ -62,7 +63,7 @@ struct QuantRows {
   const int8_t* data;
   const TS* scales;
   const int32_t* codes;
-  const float* codebook;  // global (Kc, M); the body stages it in cb_s
+  const float* codebook;  // global (Kc, M); staged in cb_s where it fits
   int M, Kc;
   // Element m of a row with scale s; c is the row's centroid (residual).
   static __device__ __forceinline__ float at(int8_t x, float s,
@@ -89,6 +90,12 @@ struct QuantRows {
     }
   }
 };
+
+// Shared memory one block may take on the H100 (227 KB; _build.py's
+// SHARED_MEM_BYTES). A body's layout stages its residual codebook only where
+// the whole layout stays within it, and reads the codebook from global
+// memory (the read-only path) above that.
+constexpr size_t kSharedMemBytes = 227 * 1024;
 
 // Opt in to more than 48 KB of dynamic shared memory where needed.
 template <typename Kernel>

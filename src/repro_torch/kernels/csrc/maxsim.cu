@@ -44,7 +44,11 @@
 //     doc's last chunk is computed. f32 rows are computed where they land;
 //     bf16 and int8 rows are turned into an f32 compute tile once per chunk
 //     with the loader's `at` (with the residual codebook staged once per
-//     block), so each element is dequantized once, not once per reader.
+//     block where the whole layout fits kSharedMemBytes, Kc up to 312 at
+//     L = M = 128 and 2 docs a block; a larger codebook stays in global
+//     memory and the tile reads its centroid rows through the read-only
+//     path, __ldg, the same f32 values), so each element is dequantized
+//     once, not once per reader.
 //  3. The query is staged once per block and 32-token pass, row-major with
 //     rows of 4 mod 32 floats (as the f32 tile's), so that tile reads of 8
 //     consecutive rows fall in distinct banks. Longer queries loop over
@@ -148,15 +152,18 @@ static_assert(kRowsPerThread == 4 && kPassT == 2 * 16, "tile shape");
 
 // Byte offsets of one block's shared-memory regions.
 struct Layout {
-  int ts;   // floats of one query row or f32 tile row (4 mod 32)
-  int rs;   // bytes of one staged doc row
-  int cbs;  // floats of one staged codebook row
-  size_t q, buf, tile, cb, tok, sc, cd, red, cnt, total;
+  int ts;          // floats of one query row or f32 tile row (4 mod 32)
+  int rs;          // bytes of one staged doc row
+  int cbs;         // floats of one staged codebook row
+  bool cb_staged;  // the codebook is staged (else read from global memory)
+  size_t q, buf, tile, tok, sc, cd, red, cnt, cb, total;
 };
 
 // esz: bytes of one stored row element (4: f32 rows, computed where they
 // land); scaled: rows carry a scale; Kc: codebook rows (0 without one);
-// kDocs: docs per block.
+// kDocs: docs per block. The codebook comes last and is staged only where
+// the whole layout stays within kSharedMemBytes; the launch picks the
+// kernel that reads it from global memory otherwise.
 __host__ __device__ inline Layout layout(int L, int M, int esz, bool scaled,
                                          int Kc, int kDocs) {
   Layout o;
@@ -171,8 +178,6 @@ __host__ __device__ inline Layout layout(int L, int M, int esz, bool scaled,
   at += 2 * (size_t)kChunk * o.rs;
   o.tile = at;  // (kChunk, ts) f32 compute tile (not for f32 rows)
   at += direct ? 0 : (size_t)kChunk * o.ts * 4;
-  o.cb = at;    // (Kc, cbs) f32 codebook
-  at += align16((size_t)Kc * o.cbs * 4);
   o.tok = at;   // (kDocs, L) int32 valid token ids, compacted per doc
   at += align16((size_t)kDocs * L * 4);
   o.sc = at;    // (kDocs, L) f32 scales of every position
@@ -183,6 +188,10 @@ __host__ __device__ inline Layout layout(int L, int M, int esz, bool scaled,
   at += align16((size_t)kHalves * kPassT * 4);
   o.cnt = at;   // (kDocs,) valid tokens per doc
   at += align16((size_t)kDocs * 4);
+  o.cb = at;    // (Kc, cbs) f32 codebook, where it fits
+  const size_t cb_bytes = align16((size_t)Kc * o.cbs * 4);
+  o.cb_staged = Kc > 0 && at + cb_bytes <= kSharedMemBytes;
+  at += o.cb_staged ? cb_bytes : 0;
   o.total = at;
   return o;
 }
@@ -262,11 +271,13 @@ struct alignas(4 * sizeof(E)) Pack4 {
 // The f32 compute tile of a staged chunk of n_k rows: element m of row j is
 // the loader's at(raw, scale, centroid row, m) of token tok[j], computed
 // once. Thread tid takes the 4-element quads tid, tid + kThreads, ... of
-// the chunk, row-major; sc and cd are indexed by token position.
-template <typename Rows>
+// the chunk, row-major; sc and cd are indexed by token position. cb is the
+// staged codebook (rows of cbs floats) or, kCbGlobal, the global one (rows
+// of M floats, read through the read-only path).
+template <typename Rows, bool kCbGlobal>
 __device__ __forceinline__ void dequant_chunk(
     const unsigned char* raw, float* tile, const int* tok, const float* sc,
-    const int* cd, const float* cb_s, int n_k, int M, int rs, int ts,
+    const int* cd, const float* cb, int n_k, int M, int rs, int ts,
     int cbs, int tid) {
   using Elem = typename Rows::Elem;
   const int mq = (M + 3) / 4;
@@ -279,9 +290,13 @@ __device__ __forceinline__ void dequant_chunk(
     float s = 1.f;
     float cv[4] = {0.f, 0.f, 0.f, 0.f};  // codebook[code][m .. m + 3]
     if constexpr (Rows::kScaled) s = sc[tok[j]];
-    if constexpr (Rows::kCodebook) {
+    if constexpr (Rows::kCodebook && kCbGlobal) {
+      const float* c = cb + (size_t)cd[tok[j]] * M + m;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cv[k] = m + k < M ? __ldg(c + k) : 0.f;
+    } else if constexpr (Rows::kCodebook) {
       const float4 c4 = *reinterpret_cast<const float4*>(
-          cb_s + (size_t)cd[tok[j]] * cbs + m);
+          cb + (size_t)cd[tok[j]] * cbs + m);
       cv[0] = c4.x;
       cv[1] = c4.y;
       cv[2] = c4.z;
@@ -403,7 +418,7 @@ struct Cursor {
   }
 };
 
-template <typename Rows, typename TQ, bool kTiles, int kDocs>
+template <typename Rows, typename TQ, bool kTiles, int kDocs, bool kCbGlobal>
 __device__ __forceinline__ void maxsim_body(
     Rows rows, const uint8_t* __restrict__ mask, const TQ* __restrict__ Qb,
     float* __restrict__ H, int N, int L, int M, int T, int Kc, int gran,
@@ -448,7 +463,9 @@ __device__ __forceinline__ void maxsim_body(
       if constexpr (Rows::kCodebook) cd_s[i] = rows.code(doc0 * L + i);
     }
   }
-  if constexpr (Rows::kCodebook)
+  const float* cb = cb_s;  // the codebook the tiles read
+  if constexpr (Rows::kCodebook && kCbGlobal) cb = rows.codebook;
+  if constexpr (Rows::kCodebook && !kCbGlobal)
     stage_f32(cb_s, o.cbs, rows.codebook, M, Kc, Kc, tid);
   __syncthreads();
   unsigned has = 0;  // bit d: doc d has a valid token
@@ -529,9 +546,9 @@ __device__ __forceinline__ void maxsim_body(
       unsigned char* raw = buf + (k & 1) * buf_bytes;
       const float* e_s = reinterpret_cast<const float*>(raw);
       if constexpr (!kDirect) {
-        dequant_chunk<Rows>(raw, tile, tok_s + cur.d * L + cur.c * kChunk,
-                            sc_s + cur.d * L, cd_s + cur.d * L, cb_s, n_k, M,
-                            o.rs, o.ts, o.cbs, tid);
+        dequant_chunk<Rows, kCbGlobal>(
+            raw, tile, tok_s + cur.d * L + cur.c * kChunk, sc_s + cur.d * L,
+            cd_s + cur.d * L, cb, n_k, M, o.rs, o.ts, o.cbs, tid);
         __syncthreads();  // the tile is written and raw is free
         stage(ahead, raw);
         if (ahead.d < nd) ahead.next(cnt_s, live, nd);
@@ -574,23 +591,24 @@ __device__ __forceinline__ void maxsim_body(
 // The kernels' names start with maxsim_kernel<DenseRows or <QuantRows and
 // masked_maxsim<DenseRows or <QuantRows, which is what chip_smoke.py's
 // profiles look for. Both take the same arguments; maxsim_kernel ignores
-// the tile mask.
-template <typename Rows, typename TQ, int kDocs>
+// the tile mask. kCbGlobal: the layout leaves the codebook in global memory
+// (layout().cb_staged false).
+template <typename Rows, typename TQ, int kDocs, bool kCbGlobal>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 maxsim_kernel(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
               int M, int T, int Kc, int gran, TileMask) {
-  maxsim_body<Rows, TQ, false, kDocs>(rows, mask, Qb, H, N, L, M, T, Kc,
-                                      gran, TileMask{});
+  maxsim_body<Rows, TQ, false, kDocs, kCbGlobal>(rows, mask, Qb, H, N, L, M,
+                                                 T, Kc, gran, TileMask{});
 }
 
-template <typename Rows, typename TQ>
+template <typename Rows, typename TQ, bool kCbGlobal>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 masked_maxsim(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qb, float* __restrict__ H, int N, int L,
               int M, int T, int Kc, int gran, TileMask tiles) {
-  maxsim_body<Rows, TQ, true, kMaskedDocs>(rows, mask, Qb, H, N, L, M, T, Kc,
-                                           gran, tiles);
+  maxsim_body<Rows, TQ, true, kMaskedDocs, kCbGlobal>(rows, mask, Qb, H, N, L,
+                                                      M, T, Kc, gran, tiles);
 }
 
 }  // namespace dense
@@ -605,14 +623,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int kDocs, typename Rows, typename TQ>
-int launch_docs(const Rows& rows, const Args& a) {
+template <int kDocs, bool kCbGlobal, typename Rows, typename TQ>
+int launch_kernel(const Rows& rows, const Args& a, int kc, size_t smem) {
   using Elem = typename Rows::Elem;
-  const int kc = codebook_rows(rows);
-  const size_t smem =
-      dense::layout(a.L, a.M, sizeof(Elem), Rows::kScaled, kc, kDocs).total;
-  auto kernel = a.tiles.m ? &dense::masked_maxsim<Rows, TQ>
-                          : &dense::maxsim_kernel<Rows, TQ, kDocs>;
+  auto kernel = a.tiles.m ? &dense::masked_maxsim<Rows, TQ, kCbGlobal>
+                          : &dense::maxsim_kernel<Rows, TQ, kDocs, kCbGlobal>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + kDocs - 1) / kDocs, a.B);
@@ -620,6 +635,22 @@ int launch_docs(const Rows& rows, const Args& a) {
       rows, a.mask, static_cast<const TQ*>(a.Q), a.H, a.N, a.L, a.M, a.T, kc,
       copy_granularity(rows.raw(0), a.M * (int)sizeof(Elem)), a.tiles);
   return (int)cudaGetLastError();
+}
+
+// The kernel the layout asks for: the codebook staged or left in global
+// memory, the one decision of dense::layout() that the size query reports
+// too.
+template <int kDocs, typename Rows, typename TQ>
+int launch_docs(const Rows& rows, const Args& a) {
+  using Elem = typename Rows::Elem;
+  const int kc = codebook_rows(rows);
+  const dense::Layout o =
+      dense::layout(a.L, a.M, sizeof(Elem), Rows::kScaled, kc, kDocs);
+  if constexpr (Rows::kCodebook) {
+    if (!o.cb_staged)
+      return launch_kernel<kDocs, true, Rows, TQ>(rows, a, kc, o.total);
+  }
+  return launch_kernel<kDocs, false, Rows, TQ>(rows, a, kc, o.total);
 }
 
 // The masked kernel is built for kMaskedDocs alone; the dense one for each
@@ -692,8 +723,9 @@ int quant_corpus(const int8_t* data, const void* scales, const int32_t* codes,
 // Bytes of shared memory one block of a dense entry point launched at
 // block_n docs per block takes (the masked ones: block_n = 2) for docs of L
 // tokens of M elements of elem_bytes bytes (4 f32, 2 bf16, 1 int8), scaled
-// rows (the _q entry points) and Kc codebook rows (0 without one); -1
-// where block_n is not one the dense kernel is built for.
+// rows (the _q entry points) and Kc codebook rows (0 without one): the
+// launch's own dense::layout(), with the codebook staged only where it
+// fits; -1 where block_n is not one the dense kernel is built for.
 extern "C" long long colbandit_maxsim_smem_bytes(int L, int M, int elem_bytes,
                                                  int scaled, int Kc,
                                                  int block_n) {

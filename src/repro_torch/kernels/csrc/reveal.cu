@@ -44,14 +44,19 @@
 //     pieces, and in plain 2- or 1-byte loads below that. A staged row is
 //     padded by 16 bytes, so the 16-byte reads of 8 threads on 8 rows
 //     fall in distinct banks.
-//  3. While the copies fly, the G selected query rows are gathered into
-//     shared memory transposed, (M, gp) with G padded to gp, a multiple of
-//     4, so one float4 read serves 4 query rows as a warp broadcast (and a
-//     thread holds one 16-byte row piece and 4 sums); the residual
-//     codebook is staged with rows padded to M + 4 floats, so threads on 8
-//     different centroids read 8 different banks.
+//  3. While the copies fly, the selected query rows are gathered into
+//     shared memory transposed, (M, gp) with the rows padded to gp, a
+//     multiple of 4, so one float4 read serves 4 query rows as a warp
+//     broadcast (and a thread holds one 16-byte row piece and 4 sums); the
+//     residual codebook is staged with rows padded to M + 4 floats, so
+//     threads on 8 different centroids read 8 different banks, where the
+//     whole layout fits a block's shared memory (kSharedMemBytes: Kc up to
+//     ~390 at L = M = 128). A larger codebook is not staged: the dot reads
+//     its centroid row from global memory through the read-only path
+//     (__ldg; an L2-resident 512 KB at Kc = 1,024, M = 128). The value of
+//     each element is the same f32 either way.
 //  4. Thread t owns token lane t % kChunk of every chunk and the batches
-//     of 4 query rows b = t / kChunk + 4p (p < 4, G <= 64). A cell's dot is
+//     of 4 query rows b = t / kChunk + 4p (p < 4, 64 rows). A cell's dot is
 //     one sequential fmaf chain over m = 0..M-1 from 0.f, of the row element
 //     (dequantized by the loader's `at` formula) times the query element:
 //     exactly the dense maxsim body's per-cell arithmetic (maxsim.cu), so a
@@ -61,9 +66,13 @@
 //     warp xor-shuffle tree and one pass over the warps of each batch
 //     give vals. nan_max lets a NaN win in any order. At G = 1 a thread
 //     computes the one query row alone, not a batch of 4 with 3 padding.
-// Thread 0 sums the stats serially in ascending g with no FMA contraction:
+// G above kMaxG = 64 query rows runs in chunks of 64 rows: for each chunk
+// the block restages the chunk's query rows and walks the doc's chunks
+// again (steps 2-5), so the registers and shared memory stay those of 64
+// rows. Thread 0 sums the stats serially in ascending g with no FMA
+// contraction, carrying its three sums across G chunks in shared memory:
 // the plain PyTorch version (kernels/reveal.py::reveal_stats) repeats that
-// order exactly. Out-of-range indices and codes are clamped, as an XLA
+// order exactly, whatever G. Out-of-range indices and codes are clamped, as an XLA
 // gather does. Every barrier is reached by all threads: the chunk loop's
 // trip count is uniform (the valid-token count), and per-thread work sits
 // between barriers. The shared-memory layout has one definition,
@@ -75,7 +84,7 @@
 namespace {
 
 constexpr int kGW = 4;     // query rows per batch (one float4)
-constexpr int kMaxG = 64;  // query rows per frontier row
+constexpr int kMaxG = 64;  // query rows per G chunk
 
 // A block shape: threads per block, valid tokens per staged chunk and
 // chunks in flight. Thread t owns token lane t % kChunk and batches
@@ -123,32 +132,34 @@ __host__ __device__ constexpr size_t align16(size_t x) {
 
 // Byte offsets of one block's shared-memory regions.
 struct Layout {
-  int gp;         // G rounded up to a multiple of kGW (at least kGW)
-  int stride;     // bytes of one staged doc row
-  int cb_stride;  // floats of one staged codebook row
-  size_t q, tq, nm, buf, cb, tok, sc, cd, red, v, cnt, total;
+  int gp;          // rows of a G chunk rounded up to a multiple of kGW
+  int stride;      // bytes of one staged doc row
+  int cb_stride;   // floats of one staged codebook row
+  bool cb_staged;  // the codebook is staged (else read from global memory)
+  size_t q, tq, nm, buf, tok, sc, cd, red, v, st, cnt, cb, total;
 };
 
 // esz: bytes of one stored row element; scaled: rows carry a scale; Kc:
-// codebook rows (0 without one).
+// codebook rows (0 without one). The codebook comes last and is staged
+// only where the whole layout stays within kSharedMemBytes; the launch
+// picks the kernel that reads it from global memory otherwise.
 template <typename S>
 __host__ __device__ inline Layout layout(int G, int L, int M, int esz,
                                          bool scaled, int Kc) {
   Layout o;
-  o.gp = G > 0 ? (G + kGW - 1) / kGW * kGW : kGW;
+  const int gc = G < kMaxG ? G : kMaxG;  // rows of the widest G chunk
+  o.gp = gc > 0 ? (gc + kGW - 1) / kGW * kGW : kGW;
   o.stride = static_cast<int>(align16((size_t)M * esz)) + 16;
   o.cb_stride = M + 4;
   size_t at = 0;
-  o.q = at;    // (M, gp) f32 query rows, transposed; rows G.. are zero
-  at += (size_t)M * o.gp * 4;
-  o.tq = at;   // (gp,) int64 clamped query row ids
+  o.q = at;    // (M, gp) f32 query rows of a G chunk, transposed; padded
+  at += (size_t)M * o.gp * 4;  // rows are zero
+  o.tq = at;   // (gp,) int64 clamped query row ids of the G chunk
   at += align16((size_t)o.gp * 8);
-  o.nm = at;   // (gp,) new_mask bytes of the row
+  o.nm = at;   // (gp,) new_mask bytes of the G chunk
   at += align16((size_t)o.gp);
   o.buf = at;  // kBufs x (kChunk, stride) staged rows
   at += (size_t)S::kBufs * S::kChunk * o.stride;
-  o.cb = at;   // (Kc, cb_stride) f32 codebook
-  at += align16((size_t)Kc * o.cb_stride * 4);
   o.tok = at;  // (L,) int32 valid token ids, compacted
   at += align16((size_t)L * 4);
   o.sc = at;   // (L,) f32 scales of the valid tokens
@@ -159,8 +170,14 @@ __host__ __device__ inline Layout layout(int G, int L, int M, int esz,
   at += align16((size_t)S::kWarpsPerBatch * o.gp * 4);
   o.v = at;    // (gp,) finished values
   at += align16((size_t)o.gp * 4);
+  o.st = at;   // 3 f32 running stats across G chunks (thread 0)
+  at += 16;
   o.cnt = at;  // (kWarps,) valid tokens per warp in a compaction pass
   at += align16((size_t)S::kWarps * 4);
+  o.cb = at;   // (Kc, cb_stride) f32 codebook, where it fits
+  const size_t cb_bytes = align16((size_t)Kc * o.cb_stride * 4);
+  o.cb_staged = Kc > 0 && at + cb_bytes <= kSharedMemBytes;
+  at += o.cb_staged ? cb_bytes : 0;
   o.total = at;
   return o;
 }
@@ -240,8 +257,9 @@ __device__ __forceinline__ void fma_query(float ev, const float* q,
 
 // acc[k] = sequential fmaf chain over m of element m of staged row e
 // (scale s, centroid row c) times q[m * gp + k], k < W (1 or kGW). The
-// row is read 16 bytes at a time.
-template <typename Rows, int W>
+// row is read 16 bytes at a time. kCbGlobal: c lies in global memory and
+// its elements are read through the read-only path beside the row's.
+template <typename Rows, int W, bool kCbGlobal>
 __device__ __forceinline__ void dot_row(const typename Rows::Elem* e,
                                         float s, const float* c,
                                         const float* q, int gp, int M,
@@ -254,18 +272,35 @@ __device__ __forceinline__ void dot_row(const typename Rows::Elem* e,
   for (; m + kVec <= M; m += kVec) {
     const uint4 raw = *reinterpret_cast<const uint4*>(e + m);
     const Elem* x = reinterpret_cast<const Elem*>(&raw);
+    if constexpr (kCbGlobal) {
+      float cv[kVec];  // centroid elements m .. m + kVec - 1
 #pragma unroll
-    for (int v = 0; v < kVec; ++v)
-      fma_query<W>(Rows::at(x[v], s, c, m + v), q + (size_t)(m + v) * gp,
-                   acc);
+      for (int v = 0; v < kVec; ++v) cv[v] = __ldg(c + m + v);
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        fma_query<W>(Rows::at(x[v], s, cv, v), q + (size_t)(m + v) * gp,
+                     acc);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        fma_query<W>(Rows::at(x[v], s, c, m + v), q + (size_t)(m + v) * gp,
+                     acc);
+    }
   }
-  for (; m < M; ++m)
-    fma_query<W>(Rows::at(e[m], s, c, m), q + (size_t)m * gp, acc);
+  for (; m < M; ++m) {
+    if constexpr (kCbGlobal) {
+      const float cv = __ldg(c + m);
+      fma_query<W>(Rows::at(e[m], s, &cv, 0), q + (size_t)m * gp, acc);
+    } else {
+      fma_query<W>(Rows::at(e[m], s, c, m), q + (size_t)m * gp, acc);
+    }
+  }
 }
 
 // The shape comes last, so a profile's kernel name still starts with
-// reveal_kernel<DenseRows or reveal_kernel<QuantRows.
-template <typename Rows, typename TQ, bool kStats, typename S>
+// reveal_kernel<DenseRows or reveal_kernel<QuantRows. kCbGlobal: the
+// layout leaves the codebook in global memory (layout().cb_staged false).
+template <typename Rows, typename TQ, bool kStats, bool kCbGlobal, typename S>
 __global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 reveal_kernel(Rows rows, const uint8_t* __restrict__ mask,
               const TQ* __restrict__ Qt, const int64_t* __restrict__ doc_idx,
@@ -287,6 +322,7 @@ reveal_kernel(Rows rows, const uint8_t* __restrict__ mask,
   int* cd_s = reinterpret_cast<int*>(smem + o.cd);
   float* red = reinterpret_cast<float*>(smem + o.red);
   float* v_s = reinterpret_cast<float*>(smem + o.v);
+  float* st_s = reinterpret_cast<float*>(smem + o.st);
   int* cnt_s = reinterpret_cast<int*>(smem + o.cnt);
 
   const int64_t f = blockIdx.x;
@@ -294,136 +330,165 @@ reveal_kernel(Rows rows, const uint8_t* __restrict__ mask,
   int64_t d = doc_idx[f];
   d = d < 0 ? 0 : (d >= D ? D - 1 : d);
   const int64_t row0 = d * L;
-  // Beside doc_idx, not after it.
-  for (int g = tid; g < G; g += S::kThreads) {
-    const int64_t t = tok_idx[f * G + g];
-    tq_s[g] = t < 0 ? 0 : (t >= TQn ? TQn - 1 : t);
-    if (kStats) nm_s[g] = new_mask[f * G + g];
-  }
+  // The query row ids and new_mask bytes of G chunk [g0, g0 + gc).
+  auto load_ids = [&](int g0, int gc) {
+    for (int g = tid; g < gc; g += S::kThreads) {
+      const int64_t t = tok_idx[f * G + g0 + g];
+      tq_s[g] = t < 0 ? 0 : (t >= TQn ? TQn - 1 : t);
+      if (kStats) nm_s[g] = new_mask[f * G + g0 + g];
+    }
+  };
+  // The first chunk's, beside doc_idx, not after it.
+  load_ids(0, min(G, kMaxG));
 
-  // 1. the doc's valid tokens; 2. its first chunks in flight.
+  // 1. the doc's valid tokens (its barriers publish the ids).
   const int n = compact_valid<S>(mask + row0, L, tok_s, cnt_s, tid);
   const int nc = (n + S::kChunk - 1) / S::kChunk;
   const int row_bytes = M * static_cast<int>(sizeof(Elem));
   const size_t buf_bytes = (size_t)S::kChunk * o.stride;
-  for (int k = 0; k < S::kBufs; ++k) {
-    const int n_k = min(S::kChunk, max(0, n - k * S::kChunk));
-    stage_chunk<S>(rows, buf + k * buf_bytes, tok_s + k * S::kChunk, n_k,
-                   row0, row_bytes, o.stride, gran, tid);
-    copy_async_commit();
-  }
-
-  // 3. while they fly: query rows (ids from tq_s, so a thread's loads are
-  // independent), codebook, scales and codes.
-#pragma unroll 4
-  for (int i = tid; i < gp * M; i += S::kThreads) {
-    const int g = i / M, m = i - g * M;
-    q_s[m * gp + g] = g < G ? to_f32(Qt[tq_s[g] * M + m]) : 0.f;
-  }
-  if constexpr (Rows::kCodebook) {
-    for (int i = tid; i < Kc * M; i += S::kThreads) {
-      const int k = i / M;
-      cb_s[k * o.cb_stride + (i - k * M)] = rows.codebook[i];
-    }
-  }
-  if constexpr (Rows::kScaled) {
-    for (int i = tid; i < n; i += S::kThreads) {
-      const int64_t r = row0 + tok_s[i];
-      sc_s[i] = rows.scale(r);
-      if constexpr (Rows::kCodebook) cd_s[i] = rows.code(r);
-    }
-  }
-
-  // 4. chunk k computes while the next ones land.
-  float run[S::kPasses][kGW];
-#pragma unroll
-  for (int p = 0; p < S::kPasses; ++p)
-#pragma unroll
-    for (int k = 0; k < kGW; ++k) run[p][k] = COLBANDIT_NEG;
   const int j = tid % S::kChunk, b0 = tid / S::kChunk;
-  const int nb = (G + kGW - 1) / kGW;
-  for (int k = 0; k < nc; ++k) {
-    copy_async_wait<S::kBufs - 1>();  // this thread's chunk k has landed
-    __syncthreads();  // everyone's has, and step 3 is done
-    const int k0 = k * S::kChunk, n_k = min(S::kChunk, n - k0);
-    unsigned char* cur = buf + (k % S::kBufs) * buf_bytes;
-    if (j < n_k) {
-      const Elem* e =
-          reinterpret_cast<const Elem*>(cur + (size_t)j * o.stride);
-      float s = 1.f;
-      const float* c = nullptr;
-      if constexpr (Rows::kScaled) s = sc_s[k0 + j];
-      if constexpr (Rows::kCodebook) c = cb_s + cd_s[k0 + j] * o.cb_stride;
-      if (G == 1) {  // uniform: no padded query rows, one thread a token
-        if (b0 == 0) {
-          float acc[1];
-          dot_row<Rows, 1>(e, s, c, q_s, gp, M, acc);
-          run[0][0] = nan_max(run[0][0], acc[0]);
+  for (int g0 = 0; g0 < G; g0 += kMaxG) {
+    const int gc = min(kMaxG, G - g0);
+    if (g0 > 0) {
+      __syncthreads();  // the last chunk's q_s, tq_s, nm_s, red, v_s are read
+      load_ids(g0, gc);
+      __syncthreads();
+    }
+    // 2. the doc's first chunks in flight.
+    for (int k = 0; k < S::kBufs; ++k) {
+      const int n_k = min(S::kChunk, max(0, n - k * S::kChunk));
+      stage_chunk<S>(rows, buf + k * buf_bytes, tok_s + k * S::kChunk, n_k,
+                     row0, row_bytes, o.stride, gran, tid);
+      copy_async_commit();
+    }
+
+    // 3. while they fly: query rows (ids from tq_s, so a thread's loads are
+    // independent), and once per block codebook, scales and codes.
+#pragma unroll 4
+    for (int i = tid; i < gp * M; i += S::kThreads) {
+      const int g = i / M, m = i - g * M;
+      q_s[m * gp + g] = g < gc ? to_f32(Qt[tq_s[g] * M + m]) : 0.f;
+    }
+    if (g0 == 0) {
+      if constexpr (Rows::kCodebook && !kCbGlobal) {
+        for (int i = tid; i < Kc * M; i += S::kThreads) {
+          const int k = i / M;
+          cb_s[k * o.cb_stride + (i - k * M)] = rows.codebook[i];
         }
-      } else {
+      }
+      if constexpr (Rows::kScaled) {
+        for (int i = tid; i < n; i += S::kThreads) {
+          const int64_t r = row0 + tok_s[i];
+          sc_s[i] = rows.scale(r);
+          if constexpr (Rows::kCodebook) cd_s[i] = rows.code(r);
+        }
+      }
+    }
+
+    // 4. chunk k computes while the next ones land.
+    float run[S::kPasses][kGW];
 #pragma unroll
-        for (int p = 0; p < S::kPasses; ++p) {
-          const int b = b0 + S::kBatchLanes * p;
-          if (b < nb) {
-            float acc[kGW];
-            dot_row<Rows, kGW>(e, s, c, q_s + b * kGW, gp, M, acc);
+    for (int p = 0; p < S::kPasses; ++p)
 #pragma unroll
-            for (int q = 0; q < kGW; ++q)
-              run[p][q] = nan_max(run[p][q], acc[q]);
+      for (int k = 0; k < kGW; ++k) run[p][k] = COLBANDIT_NEG;
+    const int nb = (gc + kGW - 1) / kGW;
+    for (int k = 0; k < nc; ++k) {
+      copy_async_wait<S::kBufs - 1>();  // this thread's chunk k has landed
+      __syncthreads();  // everyone's has, and step 3 is done
+      const int k0 = k * S::kChunk, n_k = min(S::kChunk, n - k0);
+      unsigned char* cur = buf + (k % S::kBufs) * buf_bytes;
+      if (j < n_k) {
+        const Elem* e =
+            reinterpret_cast<const Elem*>(cur + (size_t)j * o.stride);
+        float s = 1.f;
+        const float* c = nullptr;
+        if constexpr (Rows::kScaled) s = sc_s[k0 + j];
+        if constexpr (Rows::kCodebook) {
+          c = kCbGlobal ? rows.codebook + (size_t)cd_s[k0 + j] * M
+                        : cb_s + cd_s[k0 + j] * o.cb_stride;
+        }
+        if (gc == 1) {  // uniform: no padded query rows, one thread a token
+          if (b0 == 0) {
+            float acc[1];
+            dot_row<Rows, 1, kCbGlobal>(e, s, c, q_s, gp, M, acc);
+            run[0][0] = nan_max(run[0][0], acc[0]);
+          }
+        } else {
+#pragma unroll
+          for (int p = 0; p < S::kPasses; ++p) {
+            const int b = b0 + S::kBatchLanes * p;
+            if (b < nb) {
+              float acc[kGW];
+              dot_row<Rows, kGW, kCbGlobal>(e, s, c, q_s + b * kGW, gp, M,
+                                            acc);
+#pragma unroll
+              for (int q = 0; q < kGW; ++q)
+                run[p][q] = nan_max(run[p][q], acc[q]);
+            }
           }
         }
       }
+      __syncthreads();  // chunk k's buffer is free
+      const int k2 = k + S::kBufs;
+      const int n_next = min(S::kChunk, max(0, n - k2 * S::kChunk));
+      stage_chunk<S>(rows, cur, tok_s + k2 * S::kChunk, n_next, row0,
+                     row_bytes, o.stride, gran, tid);
+      copy_async_commit();
     }
-    __syncthreads();  // chunk k's buffer is free
-    const int k2 = k + S::kBufs;
-    const int n_next = min(S::kChunk, max(0, n - k2 * S::kChunk));
-    stage_chunk<S>(rows, cur, tok_s + k2 * S::kChunk, n_next, row0,
-                   row_bytes, o.stride, gran, tid);
-    copy_async_commit();
-  }
 
-  // 5. one warp tree per cell, then the warps of each batch meet.
-  const int h = warp % S::kWarpsPerBatch;
+    // 5. one warp tree per cell, then the warps of each batch meet.
+    const int h = warp % S::kWarpsPerBatch;
 #pragma unroll
-  for (int p = 0; p < S::kPasses; ++p) {
-    const int b = b0 + S::kBatchLanes * p;  // warp-uniform
-    if (b < nb) {
+    for (int p = 0; p < S::kPasses; ++p) {
+      const int b = b0 + S::kBatchLanes * p;  // warp-uniform
+      if (b < nb) {
 #pragma unroll
-      for (int q = 0; q < kGW; ++q) {
-        float x = run[p][q];
+        for (int q = 0; q < kGW; ++q) {
+          float x = run[p][q];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
-        if (lane == 0) red[h * gp + b * kGW + q] = x;
+          for (int off = 16; off > 0; off >>= 1)
+            x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, off));
+          if (lane == 0) red[h * gp + b * kGW + q] = x;
+        }
       }
     }
-  }
-  __syncthreads();
-  for (int g = tid; g < G; g += S::kThreads) {
-    float v = red[g];
-    for (int w = 1; w < S::kWarpsPerBatch; ++w)
-      v = nan_max(v, red[w * gp + g]);
-    vals[f * G + g] = v;
-    v_s[g] = v;
-  }
-  if (kStats) {
     __syncthreads();
-    if (tid == 0) {
-      float cnt = 0.f, tot = 0.f, sq = 0.f;
-      for (int g = 0; g < G; ++g) {
-        const bool fresh = nm_s[g] != 0;
-        const float v = v_s[g];
-        // vm * v, not new * v * v: an all-masked doc's -3e38 squared would
-        // overflow to inf and 0 * inf is NaN.
-        const float vm = fresh ? v : 0.f;
-        cnt = __fadd_rn(cnt, fresh ? 1.f : 0.f);
-        tot = __fadd_rn(tot, vm);
-        sq = __fadd_rn(sq, __fmul_rn(vm, v));
-      }
-      stats[f * 3 + 0] = cnt;
-      stats[f * 3 + 1] = tot;
-      stats[f * 3 + 2] = sq;
+    for (int g = tid; g < gc; g += S::kThreads) {
+      float v = red[g];
+      for (int w = 1; w < S::kWarpsPerBatch; ++w)
+        v = nan_max(v, red[w * gp + g]);
+      vals[f * G + g0 + g] = v;
+      v_s[g] = v;
     }
+    if (kStats) {
+      __syncthreads();
+      if (tid == 0) {
+        float cnt = 0.f, tot = 0.f, sq = 0.f;
+        if (g0 > 0) {
+          cnt = st_s[0];
+          tot = st_s[1];
+          sq = st_s[2];
+        }
+        for (int g = 0; g < gc; ++g) {
+          const bool fresh = nm_s[g] != 0;
+          const float v = v_s[g];
+          // vm * v, not new * v * v: an all-masked doc's -3e38 squared
+          // would overflow to inf and 0 * inf is NaN.
+          const float vm = fresh ? v : 0.f;
+          cnt = __fadd_rn(cnt, fresh ? 1.f : 0.f);
+          tot = __fadd_rn(tot, vm);
+          sq = __fadd_rn(sq, __fmul_rn(vm, v));
+        }
+        st_s[0] = cnt;
+        st_s[1] = tot;
+        st_s[2] = sq;
+      }
+    }
+  }
+  if (kStats && tid == 0) {  // thread 0 wrote st_s itself
+    stats[f * 3 + 0] = G > 0 ? st_s[0] : 0.f;
+    stats[f * 3 + 1] = G > 0 ? st_s[1] : 0.f;
+    stats[f * 3 + 2] = G > 0 ? st_s[2] : 0.f;
   }
 }
 
@@ -460,13 +525,10 @@ int codebook_rows(const Rows& rows) {
   }
 }
 
-template <typename S, typename Rows, typename TQ, bool kStats>
-int launch_shape(const Rows& rows, const Args& a) {
+template <typename S, typename Rows, typename TQ, bool kStats, bool kCbGlobal>
+int launch_kernel(const Rows& rows, const Args& a, int kc, size_t smem) {
   using Elem = typename Rows::Elem;
-  const int kc = codebook_rows(rows);
-  const size_t smem =
-      layout<S>(a.G, a.L, a.M, sizeof(Elem), Rows::kScaled, kc).total;
-  auto kernel = reveal_kernel<Rows, TQ, kStats, S>;
+  auto kernel = reveal_kernel<Rows, TQ, kStats, kCbGlobal, S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.F, S::kThreads, smem, a.stream>>>(
@@ -476,10 +538,25 @@ int launch_shape(const Rows& rows, const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// The kernel the layout asks for: the codebook staged or left in global
+// memory, the one decision of layout() that the size query reports too.
+template <typename S, typename Rows, typename TQ, bool kStats>
+int launch_shape(const Rows& rows, const Args& a) {
+  using Elem = typename Rows::Elem;
+  const int kc = codebook_rows(rows);
+  const Layout o =
+      layout<S>(a.G, a.L, a.M, sizeof(Elem), Rows::kScaled, kc);
+  if constexpr (Rows::kCodebook) {
+    if (!o.cb_staged)
+      return launch_kernel<S, Rows, TQ, kStats, true>(rows, a, kc, o.total);
+  }
+  return launch_kernel<S, Rows, TQ, kStats, false>(rows, a, kc, o.total);
+}
+
 template <typename Rows, typename TQ, bool kStats>
 int launch(const Rows& rows, const Args& a) {
   const int bl = resolve_block_l(a.F, a.block_l);
-  if (a.G < 0 || a.G > kMaxG || bl == 0) return (int)cudaErrorInvalidValue;
+  if (a.G < 0 || bl == 0) return (int)cudaErrorInvalidValue;
   return by_shape(bl, [&](auto shape) {
     return launch_shape<decltype(shape), Rows, TQ, kStats>(rows, a);
   });
@@ -528,12 +605,13 @@ int quant(const int8_t* data, const void* scales, const int32_t* codes,
 // block_l (as the entry points take it) takes for G query rows per
 // frontier row, docs of L tokens of M elements of elem_bytes bytes (4 f32,
 // 2 bf16, 1 int8), scaled rows (the _q entry points) and Kc codebook rows
-// (0 without one); -1 where G is beyond the kernel's 64, -2 where block_l
-// names no shape.
+// (0 without one): the launch's own layout(), with the codebook staged
+// only where it fits; -1 where G is negative, -2 where block_l names no
+// shape. Any G >= 0 runs (in chunks of 64 query rows).
 extern "C" long long colbandit_reveal_smem_bytes(int F, int G, int L, int M,
                                                  int elem_bytes, int scaled,
                                                  int Kc, int block_l) {
-  if (G < 0 || G > kMaxG) return -1;
+  if (G < 0) return -1;
   const int bl = resolve_block_l(F, block_l);
   if (bl == 0) return -2;
   return by_shape(bl, [&](auto shape) {

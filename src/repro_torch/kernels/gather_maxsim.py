@@ -11,8 +11,13 @@ inside the kernel and never builds the (B, L, M) copy. One block per
 frontier row compacts its doc's valid tokens, stages them into shared
 memory 64 at a time with ``cp.async`` (two chunks in flight), and each
 cell is one sequential FMA chain over M, so a cell equals the dense
-``maxsim`` kernel's bit for bit. G is at most 64; the shared memory a
-launch needs comes from the kernel's own ``colbandit_reveal_smem_bytes``.
+``maxsim`` kernel's bit for bit. Any G runs: above 64 query rows a block
+walks the rows in chunks of 64, restaging them and the doc for each. The
+shared memory a launch needs comes from the kernel's own
+``colbandit_reveal_smem_bytes``, the launch's layout: a residual codebook
+too large to stage beside the rest is read from global memory instead, so
+only the staged rows and the per-token lists (which grow with L and M) can
+exceed a block's shared memory, and then the launch raises ValueError.
 The block shape is a launch argument, ``block_l`` valid tokens per staged
 chunk: 64 (256 threads), 32 (128 threads), or 0 for the rule by launch
 size (32 above 512 frontier rows), chosen per shape bucket by
@@ -111,12 +116,12 @@ def check_gather_operands(name: str, doc_embs, doc_tok_mask, queries,
     esz = 1 if quant else doc_embs.element_size()
     smem = _build.library("reveal.cu").colbandit_reveal_smem_bytes(
         doc_idx.shape[0], G, L, M, esz, int(quant), kc, block_l)
-    _build.require(smem >= 0, name,
-                   f"G={G} query rows per frontier row exceed the "
-                   "kernel's limit (kMaxG in csrc/reveal.cu)")
     _build.require(smem <= _build.SHARED_MEM_BYTES, name,
-                   f"G={G}, L={L}, M={M}, Kc={kc} need {smem} bytes of "
-                   "shared memory")
+                   f"L={L}, M={M}: the staged doc rows and per-token lists "
+                   f"of a block need {smem} bytes of shared memory, more "
+                   f"than the card's {_build.SHARED_MEM_BYTES} a block "
+                   f"(a codebook, Kc={kc}, is not staged where it does "
+                   "not fit)")
     return dev, corpus_args, e_bf16
 
 

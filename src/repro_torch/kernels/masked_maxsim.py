@@ -14,8 +14,9 @@ query half with no active tile, and every active cell equals the dense
 kernel's bit for bit (the same fmaf chain per cell). Bound on the H100: as
 the dense kernel over the docs it reads (bytes and the f32 issue rate for
 f32, operations for int8); the design notes are in the source. The shared
-memory a launch needs is the dense body's (``colbandit_maxsim_smem_bytes``),
-so an oversized codebook raises ValueError before any launch.
+memory a launch needs is the dense body's (``colbandit_maxsim_smem_bytes``):
+a codebook too large to stage is read from global memory, and a doc length
+whose token lists do not fit raises ValueError before any launch.
 
 ``tile_mask`` is (ceil(N / block_n), ceil(T / block_t)) bool: ``block_n``
 and ``block_t`` define the grid it is written in and do not tune anything.

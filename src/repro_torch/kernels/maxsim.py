@@ -22,8 +22,11 @@ The docs per block, ``block_n``, are a launch argument (1, 2 or 4; 2 by
 default, the shape before tuning existed), chosen per shape bucket by
 ``kernels/tuning.py``; no cell depends on it. The shared memory a launch
 needs comes from the kernel's own ``colbandit_maxsim_smem_bytes`` at that
-``block_n``; a ``block_n`` the kernel is not built for, or a size beyond
-the card's, raises ValueError before any launch.
+``block_n``: a residual codebook too large to stage beside the rest is
+read from global memory instead, so only the staged rows, the compute tile
+and the per-token lists (which grow with L, M and ``block_n``) can exceed a
+block's shared memory. A ``block_n`` the kernel is not built for, or such a
+size, raises ValueError before any launch.
 
 ``maxsim_batch_plain`` is the plain PyTorch version of both
 (``kernels/ref.py``'s ``maxsim_batch_ref``: an L-chunked running max that
@@ -66,7 +69,11 @@ def _check_maxsim(name, doc_embs, doc_tok_mask, queries, smem_bytes):
                    f"unsupported sizes B={B}, N={N}")
     smem = smem_bytes(L, M)
     _build.require(smem <= _build.SHARED_MEM_BYTES, name,
-                   f"L={L}, M={M} need {smem} bytes of shared memory")
+                   f"L={L}, M={M}: the staged doc rows, compute tile and "
+                   f"per-token lists of a block need {smem} bytes of shared "
+                   f"memory, more than the card's {_build.SHARED_MEM_BYTES} "
+                   "a block (a codebook is not staged where it does not "
+                   "fit)")
     return torch.empty((B, N, queries.shape[1]), dtype=torch.float32,
                        device=queries.device)
 

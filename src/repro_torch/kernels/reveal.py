@@ -24,7 +24,9 @@ for bit. The TPU layout's 8-lane stats padding is dropped: stats are
 quantized TPU kernel ``_fused_reveal_q_kernel``: on a ``QuantTokens``
 corpus the block copies only int8 bytes, the row's scale and code into
 shared memory and dequantizes each element in the dot (the residual
-codebook is staged in shared memory once per block). Bound on the H100:
+codebook is staged in shared memory once per block where it fits, up to
+Kc ~390 at L = M = 128, and read from global memory above that). Bound on
+the H100:
 bytes (2*G flop per int8 byte). Its values equal ``colbandit_fused_reveal``
 on the dequantized corpus, and ``colbandit_gather_maxsim_q`` on the same
 corpus, bit for bit.

@@ -1,0 +1,93 @@
+"""Weights across: the JAX package's parameter pytrees -> the port's
+modules.
+
+``lm_from_jax`` takes ``repro.models.transformer.init_lm``'s tree as numpy
+arrays (``jax.tree.map(np.asarray, params)``): "embed", "final_norm",
+"head" and the stacked layers, "all" or "local" / "global" (axis 0 = layer
+of the stack, or pair of gemma2's layers). Pair i's local and global layers
+become blocks 2i and 2i + 1, JAX's execution order. ``li_head_from_jax``
+takes ``repro.models.colbert.init_li_head``'s tree. Both build on
+``device="cuda"`` unless the caller passes "cpu", in the arrays' own dtype
+unless ``dtype`` is given; a shape that does not match the config raises
+ValueError.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.colbert import LIHead
+from repro_torch.models.transformer import DecoderLM
+
+_BLOCK_LEAVES = (("ln1",), ("ln2",), ("attn", "wq"), ("attn", "wk"),
+                 ("attn", "wv"), ("attn", "wo"), ("attn", "bq"),
+                 ("attn", "bk"), ("attn", "bv"), ("mlp", "w_gate"),
+                 ("mlp", "w_up"), ("mlp", "w_down"))
+
+
+def to_tensor(a: Any) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a CPU tensor of the same dtype, a
+    copy; bfloat16 arrays (ml_dtypes) keep their bits."""
+    a = np.array(a)   # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _dtype_of(a: Any) -> torch.dtype:
+    return to_tensor(np.asarray(a).reshape(-1)[:1]).dtype
+
+
+def _load(dst: torch.Tensor, src: Any, where: str) -> None:
+    t = to_tensor(src)
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"{where}: shape {tuple(t.shape)} does not match "
+                         f"the config's {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(t.to(device=dst.device, dtype=dst.dtype))
+
+
+def lm_from_jax(params_np: Mapping[str, Any], cfg: LMConfig, *,
+                dtype: Optional[torch.dtype] = None,
+                device="cuda") -> DecoderLM:
+    model = DecoderLM(cfg, dtype or _dtype_of(params_np["embed"]), device)
+    for name in ("embed", "final_norm", "head"):
+        _load(getattr(model, name), params_np[name], name)
+    if cfg.local_global_alternating:
+        stacks = [("local", 0), ("global", 1)]
+        stride = 2
+    else:
+        stacks, stride = [("all", 0)], 1
+    for stack, offset in stacks:
+        tree = params_np[stack]
+        n = np.asarray(tree["ln1"]).shape[0]
+        if n * stride != cfg.n_layers:
+            raise ValueError(f"{stack}: {n} stacked layers, the config has "
+                             f"{cfg.n_layers}")
+        for i in range(n):
+            blk = model.blocks[i * stride + offset]
+            for path in _BLOCK_LEAVES:
+                dst = blk
+                for part in path:
+                    dst = getattr(dst, part)
+                src = tree
+                for part in path:
+                    src = src.get(part) if isinstance(src, Mapping) else None
+                if (dst is None) != (src is None):
+                    raise ValueError(f"{stack}/{'/'.join(path)}: present in "
+                                     "only one of the tree and the config")
+                if dst is not None:
+                    _load(dst, np.asarray(src)[i],
+                          f"{stack}[{i}]/{'/'.join(path)}")
+    return model
+
+
+def li_head_from_jax(head_np: Mapping[str, Any], cfg: LMConfig, *,
+                     dtype: Optional[torch.dtype] = None,
+                     device="cuda") -> LIHead:
+    head = LIHead(cfg, dtype or _dtype_of(head_np["proj"]), device)
+    _load(head.proj, head_np["proj"], "proj")
+    return head

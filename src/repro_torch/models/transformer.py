@@ -1,0 +1,290 @@
+"""Configurable decoder LM: the dense backbones of the JAX package.
+
+The counterpart of ``src/repro/models/transformer.py`` for the dense
+architectures, driven by ``LMConfig``:
+
+  * GQA with arbitrary (n_heads, n_kv_heads)   -- every arch
+  * sliding-window attention on every layer     -- ``sliding_window``
+  * local/global alternating layers + softcaps  -- gemma2
+  * QKV bias                                    -- qwen2.5
+
+JAX stacks the layers and runs them with ``lax.scan``; here a
+``DecoderLM`` holds them in a ``ModuleList`` in execution order and Python
+loops over them (``models/scan_util.py`` exists only for XLA's cost
+analysis). gemma2 keeps JAX's pairing: blocks 2i and 2i + 1 are pair i's
+local and global layer, whose K/V live in the "local" (ring, size window)
+and "global" (full) cache stacks at index i. ``remat`` is accepted and
+changes no value (its checkpointed backward comes with training). A MoE
+config (``cfg.moe``) raises ValueError: ``models/moe.py`` is ROADMAP Queue
+1's next item. JAX's ``flash_decode`` branch (split-K decode over a
+sequence-sharded cache) belongs to the mesh path and is not here.
+
+Every entry point runs where the model's parameters live (``init_lm``
+builds them on ``device="cuda"`` unless the caller passes "cpu"); token
+ids are moved there, and nothing falls back to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models import kv_cache as KV
+from repro_torch.models.layers import (MLP, Attention, _param, apply_rope,
+                                       attention, dense_init, embed_init,
+                                       fill_dense, mlp, rms_norm, softcap)
+
+Position = KV.Position
+
+
+def require_dense(cfg: LMConfig) -> None:
+    """Raise ValueError for a config the port cannot run yet."""
+    if cfg.moe:
+        raise ValueError(f"{cfg.name}: MoE layers (models/moe.py) are not "
+                         "ported yet; they are ROADMAP Queue 1's next item")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: ln1, attn, ln2, mlp."""
+
+    def __init__(self, cfg: LMConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.ln1 = _param(torch.zeros((cfg.d_model,), dtype=dtype,
+                                      device=device))
+        self.ln2 = _param(torch.zeros((cfg.d_model,), dtype=dtype,
+                                      device=device))
+        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.d_head, cfg.qkv_bias, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class DecoderLM(nn.Module):
+    """embed (V, D), final_norm (D,), head (D, V) (untied, as in JAX) and
+    the blocks in execution order. Parameters are uninitialized: build one
+    with ``init_lm`` or ``convert.lm_from_jax``."""
+
+    def __init__(self, cfg: LMConfig, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        require_dense(cfg)
+        if cfg.local_global_alternating and cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: local/global alternation needs "
+                             f"an even n_layers, got {cfg.n_layers}")
+        self.cfg = cfg
+        self.embed = _param(torch.empty((cfg.vocab, cfg.d_model),
+                                        dtype=dtype, device=device))
+        self.final_norm = _param(torch.zeros((cfg.d_model,), dtype=dtype,
+                                             device=device))
+        self.head = _param(torch.empty((cfg.d_model, cfg.vocab),
+                                       dtype=dtype, device=device))
+        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.float32,
+            device="cuda",
+            generator: Optional[torch.Generator] = None) -> DecoderLM:
+    """A ``DecoderLM`` with JAX's initial distributions (embeddings N(0,
+    0.02), projections N(0, 1/d_in), norms and biases 0), drawn on
+    ``device`` from ``generator`` or a generator seeded with ``seed``."""
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+    model = DecoderLM(cfg, dtype, device)
+    with torch.no_grad():
+        model.embed.copy_(embed_init(gen, cfg.vocab, cfg.d_model, dtype,
+                                     device))
+        model.head.copy_(dense_init(gen, cfg.d_model, cfg.vocab, dtype,
+                                    device))
+        for blk in model.blocks:
+            fill_dense(gen, blk.attn.wq, blk.attn.wk, blk.attn.wv,
+                       blk.attn.wo, blk.mlp.w_gate, blk.mlp.w_up,
+                       blk.mlp.w_down)
+    return model
+
+
+def cache_spec(cfg: LMConfig, max_seq: int) -> Dict[str, Tuple[int, int]]:
+    """stack name -> (n_layers_in_stack, s_cache)."""
+    w = cfg.sliding_window or 0
+    if cfg.local_global_alternating:
+        n_pairs = cfg.n_layers // 2
+        return {"local": (n_pairs, min(w, max_seq) if w else max_seq),
+                "global": (n_pairs, max_seq)}
+    s = min(w, max_seq) if w else max_seq
+    return {"all": (cfg.n_layers, s)}
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device="cuda") -> KV.Cache:
+    return {name: KV.init_stack(n, batch, s, cfg.n_kv_heads, cfg.d_head,
+                                dtype, device)
+            for name, (n, s) in cache_spec(cfg, max_seq).items()}
+
+
+def _window_scalar(cfg: LMConfig, local: bool) -> int:
+    if local and cfg.sliding_window:
+        return int(cfg.sliding_window)
+    if (not cfg.local_global_alternating) and cfg.sliding_window:
+        return int(cfg.sliding_window)
+    return 0
+
+
+def _plan(params: DecoderLM, cfg: LMConfig
+          ) -> Iterator[Tuple[Block, str, int, int]]:
+    """(block, cache stack, index in the stack, window) in execution
+    order: JAX's scan over "all", or over the (local, global) pairs."""
+    require_dense(cfg)
+    for i, blk in enumerate(params.blocks):
+        if cfg.local_global_alternating:
+            if i % 2 == 0:
+                yield blk, "local", i // 2, _window_scalar(cfg, True)
+            else:
+                yield blk, "global", i // 2, 0
+        else:
+            yield blk, "all", i, _window_scalar(cfg, True)
+
+
+def _token_ids(params: DecoderLM, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=params.device).to(torch.int64)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+# ---------------------------------------------------------------------------
+# layer body
+# ---------------------------------------------------------------------------
+
+def _layer(p: Block, x: torch.Tensor, positions: torch.Tensor,
+           cfg: LMConfig, window: int, kv_override=None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pre-norm block. Returns (x_out, k_seq, v_seq), K/V exposed so that
+    prefill can populate caches without recomputation."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    B, S, _ = h.shape
+    k_seq = h @ p.attn.wk
+    v_seq = h @ p.attn.wv
+    if p.attn.bk is not None:
+        k_seq = k_seq + p.attn.bk
+        v_seq = v_seq + p.attn.bv
+    k_seq = k_seq.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v_seq = v_seq.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    k_rope = apply_rope(k_seq, positions, cfg.rope_theta)
+
+    if kv_override is None:
+        kv = (k_rope, v_seq, positions,
+              torch.ones(positions.shape, dtype=torch.bool,
+                         device=positions.device))
+    else:
+        kv = kv_override
+    attn_out = attention(
+        p.attn, h, positions, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        rope_theta=cfg.rope_theta, window=window,
+        attn_softcap=cfg.attn_softcap, kv_override=kv,
+        q_chunk=cfg.attn_q_chunk)
+    x = x + attn_out
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    return x + mlp(p.mlp, h2, act=cfg.act), k_rope, v_seq
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params: DecoderLM, cfg: LMConfig, tokens, *,
+                   remat: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> final hidden states (B, S, D) (no LM head): the
+    trunk of the ColBERT late-interaction encoder. ``remat`` changes no
+    value."""
+    del remat
+    tokens = _token_ids(params, tokens)
+    B, S = tokens.shape
+    x = params.embed[tokens]
+    positions = _positions(B, S, tokens.device)
+    for blk, _, _, window in _plan(params, cfg):
+        x, _, _ = _layer(blk, x, positions, cfg, window)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def forward_train(params: DecoderLM, cfg: LMConfig, tokens, *,
+                  remat: bool = True) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V). Full causal (+window) attention;
+    inference values only (``remat`` changes none)."""
+    x = forward_hidden(params, cfg, tokens, remat=remat)
+    return softcap(x @ params.head, cfg.logit_softcap)
+
+
+def forward_prefill(params: DecoderLM, cfg: LMConfig, tokens, max_seq: int,
+                    cache_dtype=torch.bfloat16
+                    ) -> Tuple[torch.Tensor, KV.Cache]:
+    """Prefill: returns (last-token logits (B, V), populated cache)."""
+    tokens = _token_ids(params, tokens)
+    B, S = tokens.shape
+    x = params.embed[tokens]
+    positions = _positions(B, S, tokens.device)
+    spec = cache_spec(cfg, max_seq)
+    cache = init_cache(cfg, B, max_seq, cache_dtype, tokens.device)
+    for blk, stack, idx, window in _plan(params, cfg):
+        x, k_seq, v_seq = _layer(blk, x, positions, cfg, window)
+        k, v, pos = KV.prefill_write(k_seq.to(cache_dtype),
+                                     v_seq.to(cache_dtype), positions,
+                                     spec[stack][1])
+        cache[stack].k[idx] = k
+        cache[stack].v[idx] = v
+        if idx == 0:  # every layer of a stack writes the same positions
+            cache[stack].pos.copy_(pos)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = x[:, -1] @ params.head
+    return softcap(logits, cfg.logit_softcap), cache
+
+
+def forward_decode(params: DecoderLM, cfg: LMConfig, token,
+                   position: Position, cache: KV.Cache
+                   ) -> Tuple[torch.Tensor, KV.Cache]:
+    """One decode step. token (B,) at ``position`` (an int or a 0-d int
+    tensor, the same for the batch); returns (logits (B, V), the cache,
+    updated in place)."""
+    token = _token_ids(params, token)
+    B = token.shape[0]
+    x = params.embed[token][:, None, :]                       # (B, 1, D)
+    position = KV.position_tensor(position, token.device)     # once a step
+    positions = position.to(torch.int32).reshape(1, 1).expand(B, 1)
+    for blk, stack, idx, window in _plan(params, cfg):
+        st = cache[stack]
+        k_l, v_l = st.k[idx], st.v[idx]                       # views
+        h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        k_new = h @ blk.attn.wk
+        v_new = h @ blk.attn.wv
+        if blk.attn.bk is not None:
+            k_new = k_new + blk.attn.bk
+            v_new = v_new + blk.attn.bv
+        k_new = k_new.reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
+        v_new = v_new.reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        k_upd, v_upd, pos_upd = KV.write_token(
+            k_l, v_l, st.pos, k_new.to(k_l.dtype), v_new.to(v_l.dtype),
+            position)
+        kv_valid = pos_upd >= 0
+        attn_out = attention(
+            blk.attn, h, positions, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+            rope_theta=cfg.rope_theta, window=window,
+            attn_softcap=cfg.attn_softcap,
+            kv_override=(k_upd, v_upd, pos_upd, kv_valid))
+        x = x + attn_out
+        h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
+        x = x + mlp(blk.mlp, h2, act=cfg.act)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = x[:, 0] @ params.head
+    return softcap(logits, cfg.logit_softcap), cache

@@ -1,7 +1,8 @@
 """Serving runtime: the retrieval engines (``RetrievalEngine`` and the
-threaded ``AsyncRetrievalEngine``), shape buckets, and the self-healing
+threaded ``AsyncRetrievalEngine``), shape buckets, the self-healing
 layer (``Supervisor``, ``DegradeLadder``, the chaos harness re-exported
-from ``repro_torch.dist.fault``)."""
+from ``repro_torch.dist.fault``), and the LM prefill/decode engine
+(``generate``, ``serve_step`` from ``repro_torch.serve.lm``)."""
 from repro_torch.serve.bucketing import (ShapeBuckets, pad_candidates,
                                          pad_queries, support_bounds)
 from repro_torch.serve.engine import (AdmissionRejected,
@@ -9,6 +10,7 @@ from repro_torch.serve.engine import (AdmissionRejected,
                                       Completion, EngineConfig,
                                       EngineMetrics, Request,
                                       RetrievalEngine)
+from repro_torch.serve.lm import generate, serve_step
 from repro_torch.serve.resilience import (ChaosClock, ChaosKill,
                                           DegradeLadder, FaultPlan,
                                           InjectedFault, Supervisor,
@@ -20,4 +22,5 @@ __all__ = [
     "EngineConfig", "EngineMetrics", "Request", "RetrievalEngine",
     "ChaosClock", "ChaosKill", "DegradeLadder", "FaultPlan", "InjectedFault",
     "Supervisor", "poison_corpus",
+    "generate", "serve_step",
 ]

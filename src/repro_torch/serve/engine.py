@@ -86,6 +86,7 @@ from repro_torch.retrieval.service import (init_stream_state,
 from repro_torch.retrieval.sharded import route_batch
 from repro_torch.serve.bucketing import (ShapeBuckets, pad_candidates,
                                          pad_queries, support_bounds)
+from repro_torch.serve.lm import generate, serve_step  # noqa: F401
 from repro_torch.serve.resilience import DegradeLadder, Supervisor
 
 

@@ -1,0 +1,47 @@
+"""LM serving: prefill + greedy decode loop over the KV cache.
+
+The counterpart of ``src/repro/serve/lm.py``. ``generate`` keeps JAX's
+token bookkeeping: the prefill's argmax is the first new token, then
+``max_new_tokens`` decode steps run (the last one's argmax is dropped, as
+JAX's scan drops its final carry), and the cache is float32 unless the
+caller asks for another type. It runs where the model's parameters live.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.kv_cache import Cache, Position
+from repro_torch.models.transformer import (DecoderLM, forward_decode,
+                                            forward_prefill)
+
+
+@torch.no_grad()
+def generate(params: DecoderLM, cfg: LMConfig, prompt, *,
+             max_new_tokens: int = 16, max_seq: int = 0,
+             cache_dtype=torch.float32) -> torch.Tensor:
+    """Greedy generation. prompt (B, S) -> (B, S + max_new_tokens)."""
+    prompt = torch.as_tensor(prompt, device=params.device)
+    B, S = prompt.shape
+    max_seq = max_seq or (S + max_new_tokens)
+    last_logits, cache = forward_prefill(params, cfg, prompt, max_seq,
+                                         cache_dtype=cache_dtype)
+    tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+    toks = []
+    for step in range(max_new_tokens):
+        logits, cache = forward_decode(params, cfg, tok, S + step, cache)
+        toks.append(tok)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not toks:
+        return prompt
+    return torch.cat([prompt, torch.stack(toks, dim=1).to(prompt.dtype)],
+                     dim=1)
+
+
+@torch.no_grad()
+def serve_step(params: DecoderLM, cfg: LMConfig, token, position: Position,
+               cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: (logits (B, V), the cache updated in place)."""
+    return forward_decode(params, cfg, token, position, cache)

@@ -41,7 +41,7 @@ from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
 from repro_torch.kernels.quant import corpus_index, corpus_reshape, \
     dequantize, quantize
 from repro_torch.kernels.reveal import fused_reveal_cuda, \
-    fused_reveal_plain, fused_reveal_q_cuda
+    fused_reveal_plain, fused_reveal_q_cuda, reveal_stats
 from repro_torch.retrieval.corpus import build_corpus
 from repro_torch.retrieval.index import from_numpy
 from repro_torch.retrieval.pipeline import candidates_for, \
@@ -160,8 +160,11 @@ def _quant_docs(gen, D, L, M, fmt, Kc=8, scale_dtype=torch.bfloat16):
     return qt, m
 
 
+# Kc = 1,024 is beyond the codebook both layouts stage: read from global
+# memory.
 QFMTS = [("int8", 8, torch.bfloat16), ("residual", 8, torch.bfloat16),
-         ("residual", 1, torch.bfloat16), ("residual", 8, torch.float32)]
+         ("residual", 1, torch.bfloat16), ("residual", 8, torch.float32),
+         ("residual", 1024, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("fmt,Kc,sdt", QFMTS)
@@ -224,9 +227,15 @@ def test_q_wrappers_raise_on_malformed_operands(card):
             (qt._replace(codebook=qt.codebook.cpu()), "CUDA")):
         with pytest.raises(ValueError, match=match):
             gather_maxsim_q_cuda(bad, m, q, di, ti)
+    # A codebook too large to stage launches (read from global memory);
+    # token lists beyond a block's shared memory still raise.
+    big = qt._replace(codebook=torch.zeros((2048, 32), device=card))
+    torch.testing.assert_close(gather_maxsim_q_cuda(big, m, q, di, ti),
+                               gather_maxsim_plain(big, m, q, di, ti),
+                               rtol=RTOL, atol=ATOL)
+    long_qt, long_m = _quant_docs(gen, 4, 30000, 32, "residual")
     with pytest.raises(ValueError, match="shared memory"):
-        big = qt._replace(codebook=torch.zeros((2048, 32), device=card))
-        gather_maxsim_q_cuda(big, m, q, di, ti)
+        gather_maxsim_q_cuda(long_qt, long_m, q, di, ti)
     with pytest.raises(ValueError, match="QuantTokens"):
         maxsim_batch_cuda(corpus_reshape(qt, 1, 8), m[None], q[None])
 
@@ -263,7 +272,7 @@ def test_compressed_serving_launches_the_q_kernels(card, fmt):
 # ---------------------------------------------------------------------------
 
 MASKED_FMTS = [("f32", 0), ("bf16", 0), ("int8", 0), ("residual", 8),
-               ("residual", 1)]
+               ("residual", 1), ("residual", 1024)]
 
 
 def _half_tiles(grid, bt, device):
@@ -360,7 +369,7 @@ def test_masked_wrappers_raise_on_malformed_operands(card):
 # ---------------------------------------------------------------------------
 
 REVEAL_FMTS = [("f32", 0), ("bf16", 0), ("int8", 0), ("residual", 8),
-               ("residual", 1)]
+               ("residual", 1), ("residual", 1024)]
 
 
 def _reveal_corpus(gen, D, L, M, fmt, Kc, holes):
@@ -405,12 +414,15 @@ def _maxsim_cells(e, m, q, di, ti):
 @pytest.mark.parametrize("fmt,Kc", REVEAL_FMTS)
 @pytest.mark.parametrize("F,G,L,M,holes", [
     (128, 8, 128, 128, False), (64, 8, 200, 128, True),
-    (37, 3, 77, 100, True), (16, 64, 128, 128, False)])
+    (37, 3, 77, 100, True), (16, 64, 128, 128, False),
+    (24, 96, 128, 128, True), (9, 128, 77, 100, False)])
 def test_reveal_cells_equal_the_dense_maxsim_cells(card, fmt, Kc, F, G, L,
                                                    M, holes):
     """All four reveal entry points give the dense maxsim kernel's cells bit
     for bit: L=200 spans several staging chunks, holes make the valid
-    tokens no prefix, M=100 int8 rows are not 16-byte aligned."""
+    tokens no prefix, M=100 int8 rows are not 16-byte aligned, G = 96 and
+    128 run in chunks of 64 query rows, and Kc = 1,024 reads the codebook
+    from global memory."""
     gen = torch.Generator(device=card).manual_seed(9)
     D, TQ = 256, 64
     e, m = _reveal_corpus(gen, D, L, M, fmt, Kc, holes)
@@ -455,20 +467,34 @@ def test_reveal_cell_is_independent_of_G_and_row_order(card, fmt, Kc):
 
 
 def test_reveal_raises_beyond_64_query_rows(card):
-    """G is at most 64; a larger G raises before any launch."""
+    """Beyond 64 query rows a frontier row runs in chunks of 64: G = 65 and
+    200 launch, each cell equals the same cell at G = 1, the stats equal
+    reveal_stats' serial order; what still cannot fit (token lists beyond a
+    block's shared memory) raises before any launch."""
     gen = torch.Generator(device=card).manual_seed(11)
     e, m = _docs(gen, 8, 16, 32, torch.float32)
-    q = torch.randn((4, 32), generator=gen, device=card)
-    di = torch.zeros((2,), dtype=torch.int64, device=card)
+    e = _unit(e)
+    q = _unit(torch.randn((40, 32), generator=gen, device=card))
+    di = torch.tensor([1, 5, 0], dtype=torch.int64, device=card)
     _build.reset_launches()
-    for G, ok in ((64, True), (65, False)):
-        ti = torch.zeros((2, G), dtype=torch.int64, device=card)
-        if ok:
-            gather_maxsim_cuda(e, m, q, di, ti)
-        else:
-            with pytest.raises(ValueError, match="exceed"):
-                gather_maxsim_cuda(e, m, q, di, ti)
-    assert _build.LAUNCHES["gather_maxsim"] == 1
+    for G in (64, 65, 200):
+        ti = torch.randint(0, 40, (3, G), generator=gen, device=card)
+        nm = torch.rand((3, G), generator=gen, device=card) < 0.5
+        vals, fs = _reveal_all(e, m, q, di, ti, nm)
+        for g in (0, 63, G - 1):
+            one, _ = _reveal_all(e, m, q, di, ti[:, g:g + 1].contiguous(),
+                                 nm[:, g:g + 1].contiguous())
+            assert torch.equal(one[:, 0], vals[:, g])
+        torch.testing.assert_close(
+            vals, gather_maxsim_plain(e, m, q, di, ti), rtol=RTOL,
+            atol=ATOL)
+        assert torch.equal(fs, reveal_stats(vals, nm))
+    launched = _build.LAUNCHES["gather_maxsim"]
+    long_e, long_m = _docs(gen, 2, 60000, 32, torch.float32)
+    ti = torch.zeros((2, 8), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        gather_maxsim_cuda(long_e, long_m, q, di[:2], ti)
+    assert _build.LAUNCHES["gather_maxsim"] == launched
 
 
 # ---------------------------------------------------------------------------
@@ -515,9 +541,10 @@ def test_maxsim_cells_are_independent_of_the_launch(card, fmt, Kc, T, M,
 
 
 def test_maxsim_raises_beyond_shared_memory(card):
-    """A residual codebook or a doc length too large for one block's shared
-    memory raises before any launch, in the dense and the masked wrappers
-    (one body, one layout); nothing falls back."""
+    """A doc length too large for one block's shared memory raises before
+    any launch, in the dense and the masked wrappers (one body, one
+    layout); nothing falls back. A codebook too large to stage launches:
+    it is read from global memory, equal to the plain version."""
     gen = torch.Generator(device=card).manual_seed(13)
     qt, m = _quant_docs(gen, 8, 16, 32, "residual")
     q = torch.randn((1, 4, 32), generator=gen, device=card)
@@ -526,20 +553,20 @@ def test_maxsim_raises_beyond_shared_memory(card):
     long_e, long_m = _docs(gen, 2, 30000, 32, torch.float32)
     _build.reset_launches()
     with pytest.raises(ValueError, match="shared memory"):
-        maxsim_batch_q_cuda(corpus_reshape(big, 1, 8), m[None], q)
-    with pytest.raises(ValueError, match="shared memory"):
-        masked_maxsim_q_cuda(big, m, q[0], tm, 8, 4)
-    with pytest.raises(ValueError, match="shared memory"):
         maxsim_batch_cuda(long_e[None], long_m[None], q)
     with pytest.raises(ValueError, match="shared memory"):
         masked_maxsim_cuda(long_e, long_m, q[0], tm, 8, 4)
     assert not any(_build.LAUNCHES.values())
     maxsim_batch_q_cuda(corpus_reshape(qt, 1, 8), m[None], q)
     masked_maxsim_q_cuda(qt, m, q[0], tm, 8, 4)
+    got = maxsim_batch_q_cuda(corpus_reshape(big, 1, 8), m[None], q)
+    torch.testing.assert_close(got, maxsim_batch_plain(
+        corpus_reshape(big, 1, 8), m[None], q), rtol=RTOL, atol=ATOL)
+    assert torch.equal(masked_maxsim_q_cuda(big, m, q[0], tm, 8, 4), got[0])
     masked_maxsim_cuda(long_e[:, :16].contiguous(),
                        long_m[:, :16].contiguous(), q[0], tm, 8, 4)
-    assert _build.LAUNCHES["maxsim_q"] == 1
-    assert _build.LAUNCHES["masked_maxsim_q"] == 1
+    assert _build.LAUNCHES["maxsim_q"] == 2
+    assert _build.LAUNCHES["masked_maxsim_q"] == 2
     assert _build.LAUNCHES["masked_maxsim"] == 1
 
 

@@ -24,7 +24,7 @@ from repro_torch.kernels.gather_maxsim import gather_maxsim_plain, \
 from repro_torch.kernels.maxsim import maxsim_batch_plain, \
     maxsim_batch_q_cuda, maxsim_plain
 from repro_torch.kernels.reveal import fused_reveal_plain, \
-    fused_reveal_q_cuda
+    fused_reveal_q_cuda, reveal_stats
 
 RTOL, ATOL = 1e-5, 1e-6
 FORMATS = ("int8", "residual")
@@ -240,6 +240,55 @@ def test_gathered_plain_versions_on_quantized_match_ref(fmt):
         assert torch.equal(fv, vals)
         np.testing.assert_allclose(fs.numpy(), np.asarray(js), rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("fmt", ["f32", "residual"])
+def test_plain_versions_match_ref_at_96_query_rows_and_a_large_codebook(fmt):
+    """G = 96 query rows per frontier row (the kernels run two chunks of
+    64) and a Kc = 512 codebook (too large for the kernels to stage, read
+    from global memory): the plain versions, which the card's kernels are
+    held to, equal JAX's ref lane within tolerance, and the stats keep
+    their serial order (fused stats == reveal_stats of the values)."""
+    rng = np.random.default_rng(21)
+    n_docs, L, M, TQ, F, G = 12, 20, 16, 128, 5, 96
+    x = _rows(n_docs, L, M, seed=21)
+    if fmt == "residual":
+        got, want = _encode_both(x, fmt, _codebook(M, Kc=512, seed=22))
+        assert got.codebook.shape == (512, M)
+    else:
+        got, want = torch.from_numpy(x), jnp.asarray(x)
+    lens = rng.integers(1, L + 1, n_docs)
+    mask = np.arange(L)[None, :] < lens[:, None]
+    mask[0] = False
+    q = rng.standard_normal((TQ, M)).astype(np.float32)
+    di = rng.integers(0, n_docs, F)
+    di[0] = 0
+    ti = rng.integers(0, TQ, (F, G))
+    new = rng.random((F, G)) < 0.6
+    jv, js = ref.fused_reveal_ref(want, jnp.asarray(mask), jnp.asarray(q),
+                                  jnp.asarray(di), jnp.asarray(ti),
+                                  jnp.asarray(new))
+    args = (torch.from_numpy(mask), torch.from_numpy(q),
+            torch.from_numpy(di), torch.from_numpy(ti))
+    vals, stats = fused_reveal_plain(got, *args, torch.from_numpy(new))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(stats.numpy(), np.asarray(js), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(stats, reveal_stats(vals, torch.from_numpy(new)))
+    assert torch.equal(gather_maxsim_plain(got, *args), vals)
+    B, N = 3, 4
+    qb = rng.standard_normal((B, G, M)).astype(np.float32)
+    if fmt == "residual":
+        gb, wb = tq.corpus_reshape(got, B, N), jq.corpus_reshape(want, B, N)
+    else:
+        gb, wb = got.reshape(B, N, L, M), want.reshape(B, N, L, M)
+    jh = ref.maxsim_batch_ref(wb, jnp.asarray(mask.reshape(B, N, L)),
+                              jnp.asarray(qb), block_l=8)
+    h = maxsim_batch_plain(gb, torch.from_numpy(mask.reshape(B, N, L)),
+                           torch.from_numpy(qb), block_l=8)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=RTOL,
+                               atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

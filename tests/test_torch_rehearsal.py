@@ -5,7 +5,8 @@
 block, ``cp.async`` a checked synchronous copy) and holds all four entry
 points to a serial fmaf-chain reference bit for bit: the dense ones on 8
 cases, the masked ones on the same 8 under a random and a patterned tile
-mask against where(tile, reference, 0). A barrier that not every thread
+mask against where(tile, reference, 0), residual codebooks too large to
+stage among them (read from global memory). A barrier that not every thread
 reaches hangs it, as on the card, so the timeout catches that too. It says
 nothing of speed. Skips only where ``g++`` is absent.
 """
@@ -26,3 +27,4 @@ def test_maxsim_host_rehearsal_is_bit_equal():
                          timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     assert "maxsim rehearsal ok" in run.stdout
+    assert "codebook in global memory in 2 cases (want 2)" in run.stdout

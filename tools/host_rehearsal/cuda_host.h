@@ -50,6 +50,10 @@ inline float __bfloat162float(__nv_bfloat16 x) {
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+template <typename T>
+inline T __ldg(const T* p) {  // the read-only path: a plain load here
+  return *p;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 

@@ -6,7 +6,9 @@
 // tokens, -3e38 for an all-masked doc), and the masked entry points held to
 // where(tile, reference, 0) in every case, under a random tile mask and a
 // patterned one. Covers f32 and bf16 rows and queries, int8 rows with f32
-// and bf16 scales, residual rows with Kc = 8 and 1 and clamped codes, rows
+// and bf16 scales, residual rows with Kc = 8 and 1 and clamped codes, and
+// with codebooks too large to stage (Kc = 400 at M = 128, Kc = 2,000 at
+// M = 33: read from global memory, each launch under 227 KB), rows
 // that are not 16-byte aligned (M = 100 int8 rows in 4-byte pieces, M = 33
 // in single bytes), M not a multiple of 4, docs across chunk edges, masks
 // with holes, an all-masked doc in every case, N not a multiple of the docs
@@ -26,6 +28,7 @@
 namespace {
 
 std::mt19937 rng(0);
+int g_cb_global = 0;  // cases whose codebook the layout left in global memory
 float urand() { return std::uniform_real_distribution<float>(-1, 1)(rng); }
 __nv_bfloat16 to_bf16(float x) {
   uint32_t u;
@@ -127,6 +130,7 @@ int run(const Case& c) {
   int bad = 0;
   long long smem = 0, barriers = 0;
   size_t launched = 0;
+  bool cb_global = false;  // the layout left the codebook in global memory
   for (const int block_n : {1, 2, 4}) {
     std::vector<float> got(D * T, 7.f);
     g_smem_max = 0;
@@ -147,6 +151,9 @@ int run(const Case& c) {
     const long long q = colbandit_maxsim_smem_bytes(
         L, M, esz, quant, c.kind == kResidual ? c.Kc : 0, block_n);
     bad_n += q != (long long)g_smem_max;
+    bad_n += q > (long long)kSharedMemBytes;
+    if (c.kind == kResidual)
+      cb_global = !dense::layout(L, M, esz, quant, c.Kc, block_n).cb_staged;
     if (bad_n) printf("  block_n %d: FAIL (smem %lld, launched %zu)\n",
                       block_n, q, g_smem_max);
     bad += bad_n;
@@ -192,12 +199,14 @@ int run(const Case& c) {
         if (std::memcmp(&mg[i * T + t], &w, 4)) ++masked_bad;
       }
   }
+  g_cb_global += cb_global;
   printf("%-28s B=%d N=%d L=%d T=%d M=%d: %s at block_n 1/2/4; bn=%d bt=%d "
-         "%s (block_n 2: smem %lld, "
+         "%s%s (block_n 2: smem %lld, "
          "launched %zu, barriers %lld, cp.async copies of 16/8/4 bytes: "
          "%lld/%lld/%lld)\n",
          c.name, B, N, L, T, M, bad ? "FAIL" : "bit-equal", bn, bt,
-         masked_bad ? "masked FAIL" : "masked == where(tile, ref, 0)", smem,
+         masked_bad ? "masked FAIL" : "masked == where(tile, ref, 0)",
+         cb_global ? "; codebook in global memory" : "", smem,
          launched, barriers, g_async_copies[16], g_async_copies[8],
          g_async_copies[4]);
   g_smem_max = 0;
@@ -220,9 +229,19 @@ int main() {
        3},
       {"residual Kc=8", 2, 3, 128, 32, 128, kResidual, 8, true, 1, 16},
       {"residual Kc=1 M=100", 1, 6, 77, 45, 100, kResidual, 1, false, 3, 40},
+      {"residual Kc=400 (global)", 2, 3, 128, 32, 128, kResidual, 400, true,
+       1, 16},
+      {"residual Kc=2000 M=33", 1, 5, 70, 40, 33, kResidual, 2000, false, 3,
+       8},
   };
   int bad = 0;
   for (const Case& c : cases) bad += run(c) != 0;
+  // Kc = 312 is the last staged codebook at L = M = 128, 2 docs a block.
+  const bool edge = dense::layout(128, 128, 1, true, 312, 2).cb_staged &&
+                    !dense::layout(128, 128, 1, true, 313, 2).cb_staged;
+  printf("codebook in global memory in %d cases (want 2); staged up to "
+         "Kc=312 at L=M=128: %s\n", g_cb_global, edge ? "yes" : "NO");
+  bad += g_cb_global != 2 || !edge;
   printf(bad ? "MAXSIM REHEARSAL FAILED\n" : "maxsim rehearsal ok\n");
   return bad != 0;
 }

@@ -5,7 +5,10 @@
 // reveal_stats' order. Covers docs longer than a chunk, masks with holes,
 // rows that are not 16-byte aligned (copied in 4-, 2- and 1-byte pieces),
 // bf16 rows and queries, int8 and residual rows with clamped codes and
-// indices, G = 0, 1 and 64, and every case at both block shapes (block_l
+// indices, G = 0, 1 and 64, G = 96 and 128 (two chunks of query rows, the
+// statistics carried across them), residual codebooks too large to stage
+// (Kc = 600 at M = 128 and 2,000 at M = 33: read from global memory, each
+// launch under 227 KB), and every case at both block shapes (block_l
 // 64 and 32, each launch's shared memory equal to the size query's), with
 // launches small and large enough for either to be the default.
 #include <algorithm>
@@ -18,6 +21,7 @@
 namespace {
 
 std::mt19937 rng(0);
+int g_cb_global = 0;  // cases whose codebook the layout left in global memory
 float urand() { return std::uniform_real_distribution<float>(-1, 1)(rng); }
 __nv_bfloat16 to_bf16(float x) {
   uint32_t u;
@@ -164,17 +168,26 @@ int run(const Case& c) {
         F, G, L, M, esz, quant, c.kind == kResidual ? c.Kc : 0, block_l);
     // G = 0 launches nothing; otherwise the launch took what the query says.
     bad += G > 0 && smem != (long long)g_smem_max;
+    bad += smem > (long long)kSharedMemBytes;
     if (block_l == 64) smem_wide = smem;
     else bad += smem == smem_wide;
+    const bool cb_global =
+        c.kind == kResidual &&
+        !by_shape(block_l, [&](auto shape) {
+          return layout<decltype(shape)>(G, L, M, esz, quant, c.Kc).cb_staged;
+        });
+    g_cb_global += cb_global && block_l == 64;
     const bool is_default =
         block_l == (F > 512 ? 32 : 64) &&
         smem == colbandit_reveal_smem_bytes(F, G, L, M, esz, quant,
                                             c.kind == kResidual ? c.Kc : 0, 0);
-    printf("%-24s D=%d L=%d M=%d F=%d G=%d block_l=%d%s: %s (smem %lld, "
+    printf("%-24s D=%d L=%d M=%d F=%d G=%d block_l=%d%s: %s%s (smem %lld, "
            "launched %zu, barriers %lld, cp.async copies of 16/8/4 bytes: "
            "%lld/%lld/%lld)\n",
            c.name, D, L, M, F, G, block_l, is_default ? " (default)" : "",
-           bad ? "FAIL" : "bit-equal", smem, g_smem_max, g_barriers,
+           bad ? "FAIL" : "bit-equal",
+           cb_global ? ", codebook in global memory" : "", smem, g_smem_max,
+           g_barriers,
            g_async_copies[16], g_async_copies[8], g_async_copies[4]);
     g_smem_max = 0;
     g_barriers = 0;
@@ -203,17 +216,39 @@ int main() {
       {"narrow int8 G=8", 40, 100, 100, 520, 8, 32, kInt8F32Scales, 0,
        true},
       {"G=0", 8, 16, 32, 2, 0, 8, kF32, 0, false},
+      {"f32 G=96 holes", 12, 150, 64, 3, 96, 128, kF32, 0, true},
+      {"bf16 G=128", 12, 77, 77, 2, 128, 128, kBf16, 0, false},
+      {"int8 G=96", 12, 100, 100, 3, 96, 128, kInt8Bf16Scales, 0, true},
+      {"residual Kc=600 G=8", 12, 128, 128, 4, 8, 32, kResidual, 600, true},
+      {"residual Kc=600 G=128", 12, 128, 128, 2, 128, 128, kResidual, 600,
+       false},
+      {"residual Kc=2000 M=33", 12, 70, 33, 3, 5, 16, kResidual, 2000, true},
+      {"narrow residual Kc=600", 40, 64, 128, 520, 1, 32, kResidual, 600,
+       false},
   };
   int bad = 0;
   for (const Case& c : cases) bad += run(c) != 0;
-  const long long too_big = colbandit_reveal_smem_bytes(8, 65, 128, 128, 4,
-                                                        0, 0, 0);
+  // Any G >= 0 has a size: G = 65 and 200 take G = 64's layout (one chunk
+  // of query rows at a time).
+  const long long g64 = colbandit_reveal_smem_bytes(8, 64, 128, 128, 4, 0,
+                                                    0, 0);
+  const long long g65 = colbandit_reveal_smem_bytes(8, 65, 128, 128, 4, 0,
+                                                    0, 0);
+  const long long g200 = colbandit_reveal_smem_bytes(8, 200, 128, 128, 4, 0,
+                                                     0, 0);
+  const long long neg = colbandit_reveal_smem_bytes(8, -1, 128, 128, 4, 0, 0,
+                                                    0);
   const long long no_shape = colbandit_reveal_smem_bytes(8, 8, 128, 128, 4,
                                                          0, 0, 48);
-  printf("G=65: smem bytes %lld (want -1); block_l=48: %lld (want -2)\n",
-         too_big, no_shape);
-  bad += too_big != -1;
+  printf("G=65, 200: smem bytes %lld, %lld (want G=64's %lld); G=-1: %lld "
+         "(want -1); block_l=48: %lld (want -2)\n", g65, g200, g64, neg,
+         no_shape);
+  bad += g65 != g64 || g200 != g64;
+  bad += neg != -1;
   bad += no_shape != -2;
+  // The staged codebook ends near Kc = 390 for an int8 round launch.
+  printf("codebook in global memory in %d cases (want 4)\n", g_cb_global);
+  bad += g_cb_global != 4;
   printf(bad ? "REHEARSAL FAILED\n" : "rehearsal ok\n");
   return bad != 0;
 }
