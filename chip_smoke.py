@@ -72,7 +72,17 @@ Phases, in order:
      decode held to ``forward_train`` in float32 (Qwen2.5-3B at full depth,
      gemma2-27b's first layer pair across the ring's wrap), the encoder on
      the card held to the CPU, and tokens to Col-Bandit's top-K through
-     ``serve_queries`` on the encoder's embeddings (see ``lm_serving``).
+     ``serve_queries`` on the encoder's embeddings (see ``lm_serving``);
+ 13. the MoE backbones, the recsys zoo and the generalized Col-Bandit:
+     Moonlight-16B-A3B at full width and depth in bf16 (``generate`` timed
+     beside its bounds, the experts each decode layer routes to, its
+     embeddings served dense / fused / chain), decode held to
+     ``forward_train`` in float32 with no token dropped (Moonlight and
+     Mixtral 8x22B at full width, 2 layers) and the encoder on the card to
+     the CPU, both under the routing rule; FM, AutoInt, DIN and SASRec at
+     full width (``serve_p99``, ``retrieval_cand`` over 10^6 candidates,
+     card == CPU), and ``topk_bandit_generalized`` on the benchmark's grid
+     and on FM's components (see ``moe_and_recsys``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -107,6 +117,10 @@ HARNESS_QUERIES = 2     # phase 8: queries per method (cut to fit ~60 s)
 # products summed in another order (JAX's own test: 1e-4 at 2 layers of
 # width 64), and card against CPU embeddings (unit rows, 2 layers).
 LM_ATOL, ENC_ATOL = 1e-3, 1e-5
+# Phase 13: a router top-k gap (k-th minus (k+1)-th logit) below MOE_TIE may
+# flip under float noise, so two computations may route such a token
+# differently; recsys scores card against CPU in float32.
+MOE_TIE, REC_ATOL = 1e-4, 1e-5
 NEG = float(np.float32(-3e38))   # the all-masked sentinel as float32
 PAD = 512                        # spin kernels that open every profile
 
@@ -1482,6 +1496,513 @@ def lm_serving(dev, profiled_line, smi, t_start):
             for kname in launches["dense"]}
 
 
+def moe_and_recsys(dev, profiled_line, smi, t_start):
+    """13. The MoE backbones (``repro_torch.models.moe``), the recsys zoo
+    (``models/recsys.py``) and the generalized Col-Bandit
+    (``core/generalized.py``): plain PyTorch around the ported kernels,
+    every weight drawn on ``dev`` from a seeded ``torch.Generator``.
+
+    (a) Moonlight-16B-A3B at full width and depth (48 layers, 64 experts
+        top-6, 28.06 B parameters) in bf16: ``generate`` at B = 8, a
+        512-token prompt and 32 new tokens (float32 cache); prefill and
+        decode ms (CUDA events) beside their bounds, tokens/s, peak memory,
+        one profiled prefill and decode step, and the distinct experts each
+        layer's decode step routes to. Decode keeps the reference's
+        ``no_drop`` formulation, whose expert products read every expert.
+    (b) Consistency in float32 with the capacity factor n_experts / top_k,
+        so the capacity is S and no token is dropped (decode's ``no_drop``
+        then computes what ``forward_train`` does): Moonlight at full width,
+        2 layers, B = 2, a 64-token prompt; Mixtral 8x22B at full width, 2
+        of 56 layers, B = 1, a 4,100-token prompt (the window-4,096 ring
+        wraps during decode). 4 decode steps each, held to
+        ``forward_train``'s last row within LM_ATOL and its argmax where
+        the row's top-2 gap exceeds 2 * LM_ATOL, under the routing rule.
+    (c) The card against the CPU: Moonlight at full width, 2 layers,
+        float32, the same weights on both: ``encode_tokens`` within
+        ENC_ATOL under the routing rule, masked rows exactly 0.
+    (d) Tokens to top-K through the MoE encoder: (a)'s model with an LI
+        head encodes 2,048 docs (random ids, lengths 32-128, L = 128) and
+        16 queries (T = 32); a float32 ``TokenIndex`` serves dense, bandit
+        fused and bandit chain. Chain == fused exactly; overlap@5 against
+        dense and the reveal fraction reported without a gate.
+    (e) Recsys at each config's full width, float32 tables on the card:
+        ``serve_p99`` (the forward at batch 512) and ``retrieval_cand`` (1
+        query x 1,000,000 candidates through ``*_score_candidates``), ms
+        per call (CUDA events); the card equals the CPU on the forward and
+        on the first 4,096 candidates within atol 1e-5, and FM's
+        components sum to its scores.
+    (f) ``topk_bandit_generalized`` on the card over
+        ``benchmarks/generalized_recsys.py``'s grid (4,096 candidates, 16
+        fields, dim 10, k = 10, alpha_ef 0.1 / 0.3 / 1.0, seeds 0-3):
+        coverage and overlap@10 against ``exact_topk``, and whether the
+        card's ids equal a CPU run's; then once on (e)'s full-width FM
+        components (4,096 candidates x 39 components).
+
+    The routing rule: two computations may route a token differently only
+    where its top-k gap is below MOE_TIE in either; every logit row or
+    embedding of that batch row from that token on is left out of the
+    comparison, and at most one of (b)'s four decode steps may be skipped.
+
+    Returns the kernel launches of (d)'s serving calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BanditConfig
+    from repro_torch.core.baselines import exact_topk
+    from repro_torch.core.generalized import (fm_pair_components,
+                                              topk_bandit_generalized)
+    from repro_torch.core.metrics import overlap_at_k
+    from repro_torch.kernels import _build
+    from repro_torch.models import recsys as R
+    from repro_torch.models.colbert import encode_tokens, init_li_head
+    from repro_torch.models.moe import (MoE, compare_routing,
+                                        record_routing, routing_by_layer)
+    from repro_torch.models.transformer import (DecoderLM, forward_prefill,
+                                                forward_train, init_lm)
+    from repro_torch.retrieval.index import TokenIndex
+    from repro_torch.retrieval.pipeline import serve_queries
+    from repro_torch.serve import generate, serve_step
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        free, total = torch.cuda.mem_get_info()
+        held = torch.cuda.memory_allocated()
+        print(f"phase 13: torch.cuda.mem_get_info() free {free / 1e9:.2f} "
+              f"GB of {total / 1e9:.2f} GB; {held / 1e9:.2f} GB allocated by "
+              f"earlier phases [{smi}]", flush=True)
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    bw, _ = peaks(torch.cuda.get_device_name(0))
+    bf16_peak = 989e12        # dense bf16 tensor-core peak, H100 SXM
+    gen = torch.Generator(device=dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free_card():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def event_ms(fn):
+        """Device-ordered ms of one call of fn (CUDA events), and its
+        result."""
+        if not on_card:
+            t = time.perf_counter()
+            out = fn()
+            return (time.perf_counter() - t) * 1e3, out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    def expert_bytes(model):
+        return sum(w.numel() * w.element_size() for m in model.modules()
+                   if isinstance(m, MoE)
+                   for w in (m.w_gate, m.w_up, m.w_down))
+
+    # (a) Moonlight-16B-A3B, bf16, full width and depth -----------------------
+    cfg = get_config("moonshot-v1-16b-a3b")
+    t = time.perf_counter()
+    model = init_lm(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    e_bytes = expert_bytes(model)
+    print(f"phase 13a {cfg.name}: {cfg.n_layers} layers (no depth cut), "
+          f"{n_params} parameters (the config's analytic count "
+          f"{cfg.param_count()} takes the final norm twice; "
+          f"{cfg.active_param_count()} active a token), {w_bytes / 1e9:.2f} "
+          f"GB bf16 of which experts {e_bytes / 1e9:.2f} GB, drawn on {dev} "
+          f"in {time.perf_counter() - t:.1f} s [{smi}]", flush=True)
+    B, S, NEW = 8, 512, 32
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen.manual_seed(1),
+                           device=dev, dtype=torch.int32)
+    generate(model, cfg, prompt[:, :16], max_new_tokens=2)     # warm-up
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t = time.perf_counter()
+    out = generate(model, cfg, prompt, max_new_tokens=NEW)
+    sync()
+    gen_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if out.shape != (B, S + NEW) or not torch.equal(out[:, :S], prompt) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        fail(f"phase 13a: generate gave {tuple(out.shape)}, ids "
+             f"{int(out.min())}..{int(out.max())}")
+    with torch.no_grad():
+        pre_ms, (logits, cache) = event_ms(
+            lambda: forward_prefill(model, cfg, prompt, S + NEW,
+                                    cache_dtype=torch.float32))
+        if not torch.isfinite(logits).all():
+            fail("phase 13a: prefill logits are not finite")
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        step_ms = []
+        for step in range(NEW):
+            ms, (logits, cache) = event_ms(
+                lambda: serve_step(model, cfg, tok, S + step, cache))
+            step_ms.append(ms)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        if not torch.isfinite(logits).all():
+            fail("phase 13a: decode logits are not finite")
+        with record_routing(model) as log:    # the last step again
+            serve_step(model, cfg, tok, S + NEW - 1, cache)
+    distinct = [int(torch.unique(r.routing.top_idx).numel()) for r in log]
+    cache_bytes = sum(st.k.numel() * st.k.element_size() * 2
+                      for st in cache.values())
+    d, e_ff = cfg.d_model, cfg.moe_d_ff
+    per_expert = 3 * d * e_ff * 2                        # bf16 bytes
+    non_expert = w_bytes - e_bytes - (cfg.vocab - B) * d * 2
+    dec_bytes = non_expert + sum(distinct) * per_expert + cache_bytes
+    body_active = cfg.active_param_count() - 2 * cfg.vocab * d - d
+    dec_flops = 2 * (body_active + d * cfg.vocab) * B
+    pre_flops = (2 * body_active * B * S + 2 * d * cfg.vocab * B
+                 + 4 * cfg.n_layers * B * S * S * cfg.q_dim // 2)
+    bound = {k: (max(nb / bw, fl / bf16_peak) * 1e3,
+                 "bytes" if nb / bw >= fl / bf16_peak else "operations")
+             for k, (nb, fl) in (("prefill", (w_bytes, pre_flops)),
+                                 ("decode", (dec_bytes, dec_flops)))}
+    all_experts_ms = e_bytes / bw * 1e3
+    dec_med = statistics.median(step_ms)
+    print(f"phase 13a generate B={B} prompt={S} new={NEW}: "
+          f"{gen_s * 1e3:.1f} ms end to end = {B * NEW / gen_s:.1f} new "
+          f"tokens/s; prefill {pre_ms:.2f} ms (bound {bound['prefill'][0]:.2f}"
+          f" ms by {bound['prefill'][1]}); decode median {dec_med:.3f} ms per "
+          f"step, min {min(step_ms):.3f}, max {max(step_ms):.3f} (bound "
+          f"{bound['decode'][0]:.3f} ms by {bound['decode'][1]}: non-expert "
+          f"weights {non_expert / 1e9:.3f} GB + {sum(distinct)} routed "
+          f"experts {sum(distinct) * per_expert / 1e9:.3f} GB + cache "
+          f"{cache_bytes / 1e9:.3f} GB at {bw / 1e12} TB/s; the reference's "
+          f"no_drop expert products read all {cfg.n_experts} experts a "
+          f"layer, {e_bytes / 1e9:.2f} GB = {all_experts_ms:.3f} ms alone); "
+          f"{B / dec_med * 1e3:.1f} tokens/s decoding; peak memory "
+          f"{(peak - resident) / 1e9:.2f} GB above the {resident / 1e9:.2f} "
+          f"GB earlier phases left resident [{smi}]", flush=True)
+    print(f"phase 13a decode step: distinct experts routed per layer "
+          f"(B={B} tokens x top-{cfg.experts_top_k}) min {min(distinct)}, "
+          f"median {statistics.median(distinct)}, max {max(distinct)}: "
+          f"{distinct}", flush=True)
+    with torch.no_grad():
+        print(profiled_line("phase 13a prefill", lambda: forward_prefill(
+            model, cfg, prompt, S + NEW, cache_dtype=torch.float32), pre_ms),
+            f"[{smi}]", flush=True)
+        print(profiled_line("phase 13a decode step", lambda: serve_step(
+            model, cfg, tok, S + NEW - 1, cache), dec_med), f"[{smi}]",
+            flush=True)
+    del cache, logits
+
+    # (d) tokens to top-K through the MoE encoder, on (a)'s model ------------
+    head = init_li_head(cfg, seed=2, dtype=torch.bfloat16, device=dev)
+    n_docs, L, nq, T, chunk = 2048, 128, 16, 32, 128
+    g0 = torch.Generator(device="cpu").manual_seed(0)
+    doc_ids = torch.randint(0, cfg.vocab, (n_docs, L), generator=g0)
+    lens = torch.randint(32, L + 1, (n_docs,), generator=g0)
+    doc_mask = torch.arange(L)[None, :] < lens[:, None]
+    doc_ids[~doc_mask] = 0
+    q_ids = torch.randint(0, cfg.vocab, (nq, T), generator=g0)
+    with torch.no_grad():
+        sync()
+        t = time.perf_counter()
+        embs = torch.cat([encode_tokens(model, head, cfg,
+                                        doc_ids[i:i + chunk],
+                                        doc_mask[i:i + chunk])[0]
+                          for i in range(0, n_docs, chunk)])
+        sync()
+        docs_s = time.perf_counter() - t
+        t = time.perf_counter()
+        q_emb = encode_tokens(model, head, cfg, q_ids,
+                              torch.ones((nq, T), dtype=torch.bool))[0]
+        sync()
+        q_s = time.perf_counter() - t
+    del model, head
+    free_card()
+    if embs.shape != (n_docs, L, cfg.li_dim) or not torch.isfinite(
+            embs).all() or embs[~doc_mask.to(dev)].any():
+        fail("phase 13d: malformed doc embeddings")
+    index = TokenIndex(doc_embs=embs.float().contiguous(),
+                       doc_mask=doc_mask.to(dev),
+                       doc_lens=lens.to(device=dev, dtype=torch.int64))
+    queries = q_emb.float().contiguous()
+    del embs, q_emb
+    print(f"phase 13d encode ({cfg.name}, {cfg.n_layers} layers, bf16): "
+          f"{n_docs} docs (L={L}, {int(lens.sum())} valid tokens, pads "
+          f"routed) in {docs_s * 1e3:.1f} ms = {n_docs / docs_s:.1f} docs/s;"
+          f" {nq} queries (T={T}) in {q_s * 1e3:.1f} ms = "
+          f"{nq / q_s:.1f} queries/s [{smi}]", flush=True)
+    calls = {"dense": dict(flavor="dense"),
+             "fused": dict(flavor="bandit", engine="pooled"),
+             "chain": dict(flavor="bandit", engine="pooled_chain")}
+    res, launches = {}, {}
+    for label, kw in calls.items():
+        _build.reset_launches()
+        sync()
+        t = time.perf_counter()
+        res[label] = serve_queries(index, queries, k=K, kprime=10,
+                                   max_candidates=MAX_CANDIDATES,
+                                   bandit=BanditConfig(k=K), seed=SEED,
+                                   device=dev, **kw)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        launches[label] = dict(_build.LAUNCHES)
+        r = res[label]
+        print(f"phase 13d serve {label}: {ms:.1f} ms per batch of {nq}; "
+              f"launches {launches[label]}; mean reveal fraction "
+              f"{r.reveal_fraction.mean():.4f}; stats {r.stats.tolist()} "
+              f"[{smi}]", flush=True)
+        if r.topk_ids.shape != (nq, K) or not np.isfinite(
+                r.topk_scores[r.topk_ids >= 0]).all():
+            fail(f"phase 13d {label}: malformed result")
+    for label, kname in (("dense", "maxsim"), ("fused", "fused_reveal"),
+                         ("chain", "gather_maxsim")):
+        if not launches[label][kname]:
+            fail(f"phase 13d {label}: the {kname} kernel was never launched")
+    if not (np.array_equal(res["fused"].topk_ids, res["chain"].topk_ids)
+            and np.array_equal(res["fused"].reveal_fraction,
+                               res["chain"].reveal_fraction)):
+        fail("phase 13d: chain and fused differ in ids or reveal fractions")
+    ov = float(overlap_at_k(torch.as_tensor(res["fused"].topk_ids),
+                            torch.as_tensor(res["dense"].topk_ids)).mean())
+    print(f"phase 13d: chain == fused (ids, reveal fractions); overlap@{K} "
+          f"of bandit with dense {ov:.4f} (reported, no gate); mean reveal "
+          f"fraction {res['fused'].reveal_fraction.mean():.4f} [{smi}]",
+          flush=True)
+    del index, queries
+    free_card()
+
+    # (b) consistency, float32, no token dropped ------------------------------
+    def consistency(label, cfg_b, Bb, Sb):
+        """Prefill Sb tokens, 4 decode steps; each step against
+        forward_train on the grown sequence, under the routing rule."""
+        cfg_b = dataclasses.replace(
+            cfg_b, moe_capacity_factor=cfg_b.n_experts / cfg_b.experts_top_k)
+        model_b = init_lm(cfg_b, seed=3, dtype=torch.float32, device=dev)
+        toks = torch.randint(0, cfg_b.vocab, (Bb, Sb),
+                             generator=gen.manual_seed(4), device=dev)
+        err, flips, checked, skipped, ties = 0.0, 0, 0, 0, 0
+        with torch.no_grad(), record_routing(model_b) as log:
+            last, cache_b = forward_prefill(model_b, cfg_b, toks, Sb + 4,
+                                            cache_dtype=torch.float32)
+            if not all(bool(r.routing.keep.all()) for r in log):
+                fail(f"phase 13b {label}: prefill dropped a token at "
+                     f"capacity factor {cfg_b.moe_capacity_factor}")
+            seq = toks
+            cur = torch.argmax(last, -1)
+            for step in range(4):
+                dec, cache_b = serve_step(model_b, cfg_b, cur, Sb + step,
+                                          cache_b)
+                seq = torch.cat([seq, cur[:, None]], dim=1)
+                with record_routing(model_b) as train_log:
+                    ref = forward_train(model_b, cfg_b, seq)[:, -1]
+                diff = compare_routing(
+                    routing_by_layer(train_log, cfg_b.n_layers),
+                    routing_by_layer(log, cfg_b.n_layers), gap_tol=MOE_TIE)
+                if diff.wide:
+                    fail(f"phase 13b {label} step {step}: {diff.wide} "
+                         f"routing differences at a top-k gap >= {MOE_TIE}")
+                ties = diff.near_ties
+                ok = diff.first_tainted.to(dev) > Sb + step
+                skipped += int(not bool(ok.all()))
+                if ok.any():
+                    err = max(err, float((dec[ok] - ref[ok]).abs().max()))
+                    top2 = torch.topk(ref[ok], 2, dim=-1).values
+                    clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_ATOL
+                    same = torch.argmax(dec[ok], -1) == torch.argmax(
+                        ref[ok], -1)
+                    checked += int(clear.sum())
+                    flips += int((clear & ~same).sum())
+                cur = torch.argmax(dec, -1)
+        if err > LM_ATOL or flips or skipped > 1:
+            fail(f"phase 13b {label}: max |decode - forward_train| {err:.3g}"
+                 f" (atol {LM_ATOL}), {flips} greedy ids differ, {skipped} "
+                 f"of 4 steps skipped by the routing rule")
+        print(f"phase 13b {label} f32 B={Bb} prompt={Sb}, capacity factor "
+              f"{cfg_b.moe_capacity_factor:.4f} = n_experts / top_k "
+              f"(capacity = S, no token dropped, so decode's no_drop == "
+              f"forward_train): 4 decode steps == forward_train's last row, "
+              f"max_abs_err {err:.3g} (atol {LM_ATOL}); greedy ids equal on "
+              f"{checked} of {4 * Bb} steps with a top-2 gap > "
+              f"{2 * LM_ATOL}; routing equal but {ties} near-tie tokens "
+              f"(gap < {MOE_TIE}), {skipped} of 4 steps skipped [{smi}]",
+              flush=True)
+        del model_b, cache_b
+        free_card()
+
+    consistency(f"{cfg.name} full width, 2 of {cfg.n_layers} layers",
+                dataclasses.replace(cfg, n_layers=2), 2, 64)
+    mix = get_config("mixtral-8x22b")
+    consistency(f"mixtral-8x22b full width, 2 of {mix.n_layers} layers, "
+                f"window {mix.sliding_window}",
+                dataclasses.replace(mix, n_layers=2), 1,
+                mix.sliding_window + 4)
+
+    # (c) the card against the CPU, float32 -----------------------------------
+    cfg_c = dataclasses.replace(cfg, n_layers=2)
+    model_c = init_lm(cfg_c, seed=5, dtype=torch.float32, device=dev)
+    head_c = init_li_head(cfg_c, seed=6, dtype=torch.float32, device=dev)
+    cpu_model = DecoderLM(cfg_c, torch.float32, "cpu")
+    cpu_model.load_state_dict(model_c.state_dict())
+    cpu_head = init_li_head(cfg_c, seed=6, dtype=torch.float32, device="cpu")
+    cpu_head.load_state_dict(head_c.state_dict())
+    g5 = torch.Generator(device="cpu").manual_seed(5)
+    toks = torch.randint(0, cfg_c.vocab, (2, 64), generator=g5)
+    mask = torch.arange(64)[None, :] < torch.tensor([[64], [40]])
+    with torch.no_grad():
+        with record_routing(model_c) as log_card:
+            got = encode_tokens(model_c, head_c, cfg_c, toks, mask)[0].cpu()
+        with record_routing(cpu_model) as log_cpu:
+            want = encode_tokens(cpu_model, cpu_head, cfg_c, toks, mask)[0]
+    diff = compare_routing(routing_by_layer(log_cpu, 2),
+                           routing_by_layer(log_card, 2), gap_tol=MOE_TIE)
+    err = max((float((got[b, :f] - want[b, :f]).abs().max()) for b, f in
+               enumerate(diff.first_tainted.tolist()) if f > 0), default=0.0)
+    if diff.wide or err > ENC_ATOL or got[~mask].any() or want[~mask].any():
+        fail(f"phase 13c: card vs CPU max_abs_err {err:.3g} (atol "
+             f"{ENC_ATOL}), {diff.wide} wide routing differences, or a "
+             f"masked row is not 0")
+    print(f"phase 13c encode_tokens {cfg.name} full width, 2 layers, f32: "
+          f"card == CPU within atol {ENC_ATOL} (max_abs_err {err:.3g}); "
+          f"routing equal but {diff.near_ties} near-tie tokens, rows "
+          f"compared up to {diff.first_tainted.tolist()} of 64; masked rows "
+          f"0 [{smi}]", flush=True)
+    del model_c, head_c, cpu_model
+    free_card()
+
+    # (e) recsys at full width ------------------------------------------------
+    def call_ms(fn, reps=5):
+        """Median ms of one call (CUDA events), after a warm call."""
+        fn()
+        return statistics.median(event_ms(fn)[0] for _ in range(reps))
+
+    n_check = 4096
+    rec = {}
+    fm_comps = None
+    for arch in ("fm", "autoint", "din", "sasrec"):
+        rcfg = get_config(arch)
+        shape = {s.name: s for s in rcfg.shapes}
+        n_batch = shape["serve_p99"].batch                     # 512
+        n_cand = shape["retrieval_cand"].n_candidates          # 10^6
+        t = time.perf_counter()
+        m = getattr(R, f"init_{arch}")(rcfg, seed=7, device=dev)
+        sync()
+        n_bytes = sum(p.numel() * p.element_size() for p in m.parameters())
+        init_s = time.perf_counter() - t
+        cpu_m = type(m)(rcfg, torch.float32, "cpu")
+        cpu_m.load_state_dict(m.state_dict())
+        g7 = torch.Generator(device="cpu").manual_seed(7)
+        if rcfg.vocab_sizes:
+            ids = torch.stack([torch.randint(0, v, (n_batch,), generator=g7)
+                               for v in rcfg.vocab_sizes], dim=1)
+            fwd_args = (ids,)
+            ctx = torch.stack([torch.randint(0, v, (), generator=g7)
+                               for v in rcfg.vocab_sizes[:-1]])
+            cand = torch.randint(0, rcfg.vocab_sizes[-1], (n_cand,),
+                                 generator=g7)
+            score_args = (ctx, cand)
+            pool = rcfg.vocab_sizes[-1]
+        else:
+            hist = torch.randint(0, rcfg.item_vocab, (n_batch, rcfg.seq_len),
+                                 generator=g7)
+            hmask = torch.arange(rcfg.seq_len)[None, :] < torch.randint(
+                1, rcfg.seq_len + 1, (n_batch, 1), generator=g7)
+            target = torch.randint(0, rcfg.item_vocab, (n_batch,),
+                                   generator=g7)
+            fwd_args = (hist, hmask, target)
+            hmask0 = torch.ones((rcfg.seq_len,), dtype=torch.bool)
+            cand = torch.randint(0, rcfg.item_vocab, (n_cand,), generator=g7)
+            score_args = (hist[0], hmask0, cand)
+            pool = rcfg.item_vocab
+        fwd = getattr(R, f"{arch}_forward")
+        score = getattr(R, f"{arch}_score_candidates")
+        d_fwd = tuple(a.to(dev) for a in fwd_args)
+        d_score = tuple(a.to(dev) for a in score_args)
+        with torch.no_grad():
+            p99_ms = call_ms(lambda: fwd(m, rcfg, *d_fwd))
+            cand_ms = call_ms(lambda: score(m, rcfg, *d_score), reps=3)
+            got_f = fwd(m, rcfg, *d_fwd).cpu()
+            got_s = score(m, rcfg, *d_score)
+            want_f = fwd(cpu_m, rcfg, *fwd_args)
+            want_s = score(cpu_m, rcfg, *score_args[:-1],
+                           score_args[-1][:n_check])
+        if got_s.shape != (n_cand,) or not torch.isfinite(got_s).all():
+            fail(f"phase 13e {arch}: malformed candidate scores")
+        err = max(float((got_f - want_f).abs().max()),
+                  float((got_s[:n_check].cpu() - want_s).abs().max()))
+        if err > REC_ATOL:
+            fail(f"phase 13e {arch}: card vs CPU max_abs_err {err:.3g} "
+                 f"(atol {REC_ATOL})")
+        extra = ""
+        if arch == "fm":
+            with torch.no_grad():
+                comps = R.fm_candidate_components(m, rcfg, *d_score)
+            c_err = float((comps.sum(-1) - got_s).abs().max())
+            if comps.shape != (n_cand, rcfg.n_sparse) or c_err > REC_ATOL:
+                fail(f"phase 13e fm: components {tuple(comps.shape)} sum to "
+                     f"the scores within {c_err:.3g} (atol {REC_ATOL})")
+            fm_comps = comps[:n_check].contiguous()
+            extra = (f"; fm_candidate_components {tuple(comps.shape)} sum "
+                     f"to fm_score_candidates within {c_err:.3g}")
+            del comps
+        rec[arch] = dict(serve_p99_ms=round(p99_ms, 4),
+                         retrieval_cand_ms=round(cand_ms, 3),
+                         param_gb=round(n_bytes / 1e9, 3))
+        print(f"phase 13e {arch} full width: {n_bytes / 1e9:.3f} GB f32 on "
+              f"{dev} (drawn in {init_s:.1f} s); serve_p99 forward "
+              f"B={n_batch} {p99_ms:.4f} ms; retrieval_cand 1 x {n_cand} candidates "
+              f"(uniform over {pool} ids) {cand_ms:.3f} ms per call; card "
+              f"== CPU on the forward and the first {n_check} candidates "
+              f"within atol {REC_ATOL} (max_abs_err {err:.3g}){extra} "
+              f"[{smi}]", flush=True)
+        del m, cpu_m, got_s
+        free_card()
+    print(f"phase 13e json {json.dumps(rec)}", flush=True)
+
+    # (f) the generalized Col-Bandit ------------------------------------------
+    grid, same_cpu = [], 0
+    for alpha in (0.1, 0.3, 1.0):
+        covs, ovs = [], []
+        for seed in range(4):
+            rng = np.random.default_rng(seed)
+            ctx = torch.from_numpy((rng.standard_normal((16, 10)) * 0.3
+                                    ).astype(np.float32))
+            cands = torch.from_numpy((rng.standard_normal((4096, 10)) * 0.3
+                                      ).astype(np.float32))
+            comps = fm_pair_components(ctx.to(dev), cands.to(dev))
+            exact, _ = exact_topk(comps, k=10)
+            kw = dict(k=10, alpha_ef=alpha, block_docs=64, block_tokens=2)
+            r = topk_bandit_generalized(comps, seed, **kw)
+            covs.append(float(r.coverage))
+            ovs.append(float(overlap_at_k(r.topk.cpu(), exact.cpu())))
+            if seed == 0:
+                r_cpu = topk_bandit_generalized(comps.cpu(), seed, **kw)
+                same = torch.equal(r.topk.cpu(), r_cpu.topk)
+                same_cpu += int(same)
+                print(f"phase 13f alpha_ef={alpha} seed 0: card ids == "
+                      f"CPU ids {same} (coverage {float(r.coverage):.4f} / "
+                      f"{float(r_cpu.coverage):.4f}, rounds "
+                      f"{int(r.rounds)} / {int(r_cpu.rounds)})", flush=True)
+        grid.append(dict(alpha_ef=alpha, coverage=round(float(np.mean(covs)),
+                                                        4),
+                         overlap=round(float(np.mean(ovs)), 4)))
+    print(f"phase 13f generalized bandit, 4096 candidates x 16 fields, k=10, "
+          f"seeds 0-3: {json.dumps(grid)}; card ids == CPU ids at seed 0 "
+          f"for {same_cpu} of 3 alpha_ef (reported, no gate) [{smi}]",
+          flush=True)
+    exact, _ = exact_topk(fm_comps, k=10)
+    r = topk_bandit_generalized(fm_comps, 0, k=10, alpha_ef=0.3,
+                                block_docs=64, block_tokens=2)
+    print(f"phase 13f generalized bandit on full-width FM components "
+          f"{tuple(fm_comps.shape)}: coverage {float(r.coverage):.4f}, "
+          f"overlap@10 with exact_topk "
+          f"{float(overlap_at_k(r.topk.cpu(), exact.cpu())):.4f}, rounds "
+          f"{int(r.rounds)} [{smi}]", flush=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {kname: sum(run[kname] for run in launches.values())
+            for kname in launches["dense"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -2767,6 +3288,15 @@ def main() -> int:
     # 12. LM serving and the late-interaction encoder -------------------------
     served = lm_serving(torch.device("cuda"), profiled_line, smi, t_start)
     print(f"phase 12: launches in the served runs {dict(served)}",
+          flush=True)
+    for kname, n in served.items():
+        records[kname]["launches"] += n
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 13. MoE backbones, recsys and the generalized Col-Bandit --------------
+    torch.cuda.empty_cache()              # phase 12's models and caches
+    served = moe_and_recsys(torch.device("cuda"), profiled_line, smi,
+                            t_start)
+    print(f"phase 13: launches in the served runs {dict(served)}",
           flush=True)
     for kname, n in served.items():
         records[kname]["launches"] += n

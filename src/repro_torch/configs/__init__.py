@@ -1,18 +1,33 @@
 """Config registry: ``get_config(<arch id>)`` -> config object, for what
-the port runs: the paper's retrieval configs and the dense LM backbones
-(the JAX package's ``repro.configs`` registry, without the MoE, GNN and
-recsys configs, which come with their models)."""
-from repro_torch.configs.base import (LM_SHAPES, BanditConfig, LMConfig,
-                                      RetrievalConfig, ShapeSpec)
+the port runs: the paper's retrieval configs, the LM backbones (dense and
+MoE) and the recsys models (the JAX package's ``repro.configs`` registry
+without the GNN config, which comes with the GNN)."""
+from repro_torch.configs.autoint import CONFIG as AUTOINT
+from repro_torch.configs.base import (LM_SHAPES, RECSYS_SHAPES, BanditConfig,
+                                      LMConfig, RecsysConfig,
+                                      RetrievalConfig, ShapeSpec,
+                                      criteo_like_vocab)
 from repro_torch.configs.colbert_repro import MM_CONFIG, TEXT_CONFIG
+from repro_torch.configs.din import CONFIG as DIN
+from repro_torch.configs.fm import CONFIG as FM
 from repro_torch.configs.gemma2_27b import CONFIG as GEMMA2_27B
 from repro_torch.configs.internlm2_20b import CONFIG as INTERNLM2_20B
+from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL_8X22B
+from repro_torch.configs.moonshot_v1_16b_a3b import \
+    CONFIG as MOONSHOT_V1_16B_A3B
 from repro_torch.configs.qwen2_5_3b import CONFIG as QWEN2_5_3B
+from repro_torch.configs.sasrec import CONFIG as SASREC
 
 REGISTRY = {
+    "mixtral-8x22b": MIXTRAL_8X22B,
+    "moonshot-v1-16b-a3b": MOONSHOT_V1_16B_A3B,
     "internlm2-20b": INTERNLM2_20B,
     "gemma2-27b": GEMMA2_27B,
     "qwen2.5-3b": QWEN2_5_3B,
+    "autoint": AUTOINT,
+    "sasrec": SASREC,
+    "din": DIN,
+    "fm": FM,
     # the paper's own workload
     "colbert-text": TEXT_CONFIG,
     "colbert-mm": MM_CONFIG,
@@ -27,4 +42,7 @@ def get_config(arch: str):
 
 __all__ = ["BanditConfig", "RetrievalConfig", "ShapeSpec", "TEXT_CONFIG",
            "MM_CONFIG", "LMConfig", "LM_SHAPES", "QWEN2_5_3B",
-           "INTERNLM2_20B", "GEMMA2_27B", "REGISTRY", "get_config"]
+           "INTERNLM2_20B", "GEMMA2_27B", "MIXTRAL_8X22B",
+           "MOONSHOT_V1_16B_A3B", "RecsysConfig", "RECSYS_SHAPES",
+           "criteo_like_vocab", "FM", "AUTOINT", "DIN", "SASREC",
+           "REGISTRY", "get_config"]

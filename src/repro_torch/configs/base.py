@@ -1,7 +1,7 @@
-"""Retrieval, Col-Bandit and LM config dataclasses (the serving subset of
-``repro.configs.base``). Field names and defaults match the JAX package, so
-``BanditConfig(**dataclasses.asdict(jax_cfg))`` and
-``LMConfig(**dataclasses.asdict(jax_cfg))`` carry a config across."""
+"""Retrieval, Col-Bandit, LM and recsys config dataclasses (
+``repro.configs.base`` without the GNN config). Field names and defaults
+match the JAX package, so ``BanditConfig(**dataclasses.asdict(jax_cfg))``,
+``LMConfig(**...)`` and ``RecsysConfig(**...)`` carry a config across."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,8 +11,8 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell: the retrieval fields and the LM ones (the GNN
-    and recsys fields come with their models)."""
+    """One input-shape cell: the retrieval, recsys and LM fields (the GNN
+    fields come with the GNN)."""
     name: str
     kind: str
     batch: int = 0
@@ -30,7 +30,7 @@ def _shape(spec) -> ShapeSpec:
     extra = {k: v for k, v in spec.items() if k not in names and v}
     if extra:
         raise ValueError(f"ShapeSpec: fields {sorted(extra)} are not "
-                         "ported (GNN / recsys shapes)")
+                         "ported (GNN shapes)")
     return ShapeSpec(**{k: v for k, v in spec.items() if k in names})
 
 
@@ -42,6 +42,15 @@ LM_SHAPES: Tuple[ShapeSpec, ...] = (
               global_batch=128),
     ShapeSpec(name="long_500k", kind="decode", seq_len=524288,
               global_batch=1),
+)
+
+
+RECSYS_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="train_batch", kind="train", batch=65536),
+    ShapeSpec(name="serve_p99", kind="serve", batch=512),
+    ShapeSpec(name="serve_bulk", kind="serve", batch=262144),
+    ShapeSpec(name="retrieval_cand", kind="serve", batch=1,
+              n_candidates=1_000_000),
 )
 
 
@@ -153,3 +162,47 @@ class LMConfig:
         all_experts = self.n_experts * 3 * d * e_ff
         active = self.experts_top_k * 3 * d * e_ff
         return full - self.n_layers * (all_experts - active)
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    # "fm-2way" | "self-attn" | "self-attn-seq" | "target-attn"
+    interaction: str
+    embed_dim: int
+    n_sparse: int = 0
+    vocab_sizes: Tuple[int, ...] = ()    # per-field table rows
+    # AutoInt
+    n_attn_layers: int = 0
+    n_heads: int = 0
+    d_attn: int = 0
+    # SASRec
+    n_blocks: int = 0
+    seq_len: int = 0
+    item_vocab: int = 0
+    # DIN
+    attn_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()
+    family: str = "recsys"
+    shapes: Tuple[ShapeSpec, ...] = RECSYS_SHAPES
+
+    def __post_init__(self):
+        object.__setattr__(self, "shapes",
+                           tuple(_shape(s) for s in self.shapes))
+        for name in ("vocab_sizes", "attn_mlp", "mlp"):
+            object.__setattr__(self, name, tuple(getattr(self, name)))
+
+
+def criteo_like_vocab(n_fields: int, seed: int = 0) -> Tuple[int, ...]:
+    """Deterministic, criteo-shaped table sizes: a few huge, many small."""
+    sizes = []
+    for i in range(n_fields):
+        if i % 13 == 0:
+            sizes.append(10_000_000)
+        elif i % 5 == 0:
+            sizes.append(1_000_000)
+        elif i % 3 == 0:
+            sizes.append(100_000)
+        else:
+            sizes.append(10_000 + 997 * i)
+    return tuple(sizes)

@@ -1,10 +1,11 @@
 """Late-interaction (ColBERT-style) encoder head over an LM backbone.
 
 The counterpart of ``src/repro/models/colbert.py``, the paper-integration
-point: a dense LM backbone, a linear projection to li_dim (= 128, as
-ColBERTv2 / Jina-ColBERT-v2 / Granite Vision) and L2 normalization produce
-the token embeddings that the Col-Bandit reranker consumes. As in JAX,
-padded tokens are not masked out of attention; only their output rows are
+point: an LM backbone (dense or MoE), a linear projection to li_dim (=
+128, as ColBERTv2 / Jina-ColBERT-v2 / Granite Vision) and L2 normalization
+produce the token embeddings that the Col-Bandit reranker consumes. As in
+JAX, padded tokens are not masked out of attention, and a MoE backbone
+routes them and counts them against capacity; only their output rows are
 zeroed.
 """
 from __future__ import annotations

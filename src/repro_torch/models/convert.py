@@ -5,11 +5,15 @@ modules.
 arrays (``jax.tree.map(np.asarray, params)``): "embed", "final_norm",
 "head" and the stacked layers, "all" or "local" / "global" (axis 0 = layer
 of the stack, or pair of gemma2's layers). Pair i's local and global layers
-become blocks 2i and 2i + 1, JAX's execution order. ``li_head_from_jax``
-takes ``repro.models.colbert.init_li_head``'s tree. Both build on
-``device="cuda"`` unless the caller passes "cpu", in the arrays' own dtype
-unless ``dtype`` is given; a shape that does not match the config raises
-ValueError.
+become blocks 2i and 2i + 1, JAX's execution order. A MoE layer's
+"moe" leaves (router, w_gate, w_up, w_down) go to ``Block.moe``.
+``li_head_from_jax`` takes ``repro.models.colbert.init_li_head``'s tree,
+``recsys_from_jax`` the trees of ``repro.models.recsys.init_fm`` /
+``init_autoint`` / ``init_din`` / ``init_sasrec`` (the model by
+``cfg.interaction``). Each builds on ``device="cuda"`` unless the caller
+passes "cpu", in the arrays' own dtype unless ``dtype`` is given; a shape
+that does not match the config, or a leaf present in only one of the tree
+and the model, raises ValueError.
 """
 from __future__ import annotations
 
@@ -18,14 +22,16 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.models import recsys as R
 from repro_torch.models.colbert import LIHead
 from repro_torch.models.transformer import DecoderLM
 
 _BLOCK_LEAVES = (("ln1",), ("ln2",), ("attn", "wq"), ("attn", "wk"),
                  ("attn", "wv"), ("attn", "wo"), ("attn", "bq"),
                  ("attn", "bk"), ("attn", "bv"), ("mlp", "w_gate"),
-                 ("mlp", "w_up"), ("mlp", "w_down"))
+                 ("mlp", "w_up"), ("mlp", "w_down"), ("moe", "router"),
+                 ("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"))
 
 
 def to_tensor(a: Any) -> torch.Tensor:
@@ -72,7 +78,7 @@ def lm_from_jax(params_np: Mapping[str, Any], cfg: LMConfig, *,
             for path in _BLOCK_LEAVES:
                 dst = blk
                 for part in path:
-                    dst = getattr(dst, part)
+                    dst = getattr(dst, part) if dst is not None else None
                 src = tree
                 for part in path:
                     src = src.get(part) if isinstance(src, Mapping) else None
@@ -91,3 +97,39 @@ def li_head_from_jax(head_np: Mapping[str, Any], cfg: LMConfig, *,
     head = LIHead(cfg, dtype or _dtype_of(head_np["proj"]), device)
     _load(head.proj, head_np["proj"], "proj")
     return head
+
+
+_RECSYS = {"fm-2way": (R.FM, "table"), "self-attn": (R.AutoInt, "table"),
+           "target-attn": (R.DIN, "item_table"),
+           "self-attn-seq": (R.SASRec, "item_table")}
+
+
+def _leaves(tree: Any, prefix: str = ""):
+    """'a.0.b'-style names of a nested dict / list tree's leaves."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _leaves(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+def recsys_from_jax(params_np: Mapping[str, Any], cfg: RecsysConfig, *,
+                    dtype: Optional[torch.dtype] = None,
+                    device="cuda") -> torch.nn.Module:
+    if cfg.interaction not in _RECSYS:
+        raise ValueError(f"{cfg.name}: unknown interaction "
+                         f"{cfg.interaction!r}")
+    cls, first = _RECSYS[cfg.interaction]
+    model = cls(cfg, dtype or _dtype_of(params_np[first]), device)
+    src = dict(_leaves(params_np))
+    dst = dict(model.named_parameters())
+    if set(src) != set(dst):
+        raise ValueError(f"{cfg.name}: leaves present in only one of the "
+                         f"tree and the model: {sorted(set(src) ^ set(dst))}")
+    for name, param in dst.items():
+        _load(param, src[name], name)
+    return model

@@ -1,23 +1,26 @@
-"""Configurable decoder LM: the dense backbones of the JAX package.
+"""Configurable decoder LM: the backbones of the JAX package.
 
-The counterpart of ``src/repro/models/transformer.py`` for the dense
-architectures, driven by ``LMConfig``:
+The counterpart of ``src/repro/models/transformer.py``, driven by
+``LMConfig``:
 
   * GQA with arbitrary (n_heads, n_kv_heads)   -- every arch
-  * sliding-window attention on every layer     -- ``sliding_window``
+  * sliding-window attention on every layer     -- mixtral, ``sliding_window``
   * local/global alternating layers + softcaps  -- gemma2
   * QKV bias                                    -- qwen2.5
+  * routed MoE FFN (capacity dispatch)          -- mixtral, moonshot
 
 JAX stacks the layers and runs them with ``lax.scan``; here a
 ``DecoderLM`` holds them in a ``ModuleList`` in execution order and Python
 loops over them (``models/scan_util.py`` exists only for XLA's cost
 analysis). gemma2 keeps JAX's pairing: blocks 2i and 2i + 1 are pair i's
 local and global layer, whose K/V live in the "local" (ring, size window)
-and "global" (full) cache stacks at index i. ``remat`` is accepted and
-changes no value (its checkpointed backward comes with training). A MoE
-config (``cfg.moe``) raises ValueError: ``models/moe.py`` is ROADMAP Queue
-1's next item. JAX's ``flash_decode`` branch (split-K decode over a
-sequence-sharded cache) belongs to the mesh path and is not here.
+and "global" (full) cache stacks at index i. A MoE block (``cfg.moe``)
+holds ``moe`` in place of ``mlp``: the train, hidden and prefill forwards
+route with ``cfg.moe_capacity_factor`` (tokens beyond capacity dropped),
+decode with ``no_drop=True``, as in JAX. ``remat`` is accepted and changes
+no value (its checkpointed backward comes with training). JAX's
+``flash_decode`` branch (split-K decode over a sequence-sharded cache)
+belongs to the mesh path and is not here.
 
 Every entry point runs where the model's parameters live (``init_lm``
 builds them on ``device="cuda"`` unless the caller passes "cpu"); token
@@ -35,15 +38,9 @@ from repro_torch.models import kv_cache as KV
 from repro_torch.models.layers import (MLP, Attention, _param, apply_rope,
                                        attention, dense_init, embed_init,
                                        fill_dense, mlp, rms_norm, softcap)
+from repro_torch.models.moe import MoE, fill_moe, moe_ffn
 
 Position = KV.Position
-
-
-def require_dense(cfg: LMConfig) -> None:
-    """Raise ValueError for a config the port cannot run yet."""
-    if cfg.moe:
-        raise ValueError(f"{cfg.name}: MoE layers (models/moe.py) are not "
-                         "ported yet; they are ROADMAP Queue 1's next item")
 
 
 # ---------------------------------------------------------------------------
@@ -51,7 +48,8 @@ def require_dense(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: ln1, attn, ln2, mlp."""
+    """One pre-norm decoder layer: ln1, attn, ln2, and mlp or (``cfg.moe``)
+    moe; the other one is None."""
 
     def __init__(self, cfg: LMConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -61,7 +59,12 @@ class Block(nn.Module):
                                       device=device))
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.d_head, cfg.qkv_bias, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.mlp = self.moe = None
+        if cfg.moe:
+            self.moe = MoE(cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                           cfg.n_experts, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
 
 class DecoderLM(nn.Module):
@@ -71,7 +74,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, dtype=torch.float32, device="cuda"):
         super().__init__()
-        require_dense(cfg)
         if cfg.local_global_alternating and cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: local/global alternation needs "
                              f"an even n_layers, got {cfg.n_layers}")
@@ -94,7 +96,8 @@ def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.float32,
             device="cuda",
             generator: Optional[torch.Generator] = None) -> DecoderLM:
     """A ``DecoderLM`` with JAX's initial distributions (embeddings N(0,
-    0.02), projections N(0, 1/d_in), norms and biases 0), drawn on
+    0.02), projections, routers and experts N(0, 1/d_in), norms and biases
+    0), drawn on
     ``device`` from ``generator`` or a generator seeded with ``seed``."""
     gen = generator
     if gen is None:
@@ -107,8 +110,11 @@ def init_lm(cfg: LMConfig, *, seed: int = 0, dtype=torch.float32,
                                     device))
         for blk in model.blocks:
             fill_dense(gen, blk.attn.wq, blk.attn.wk, blk.attn.wv,
-                       blk.attn.wo, blk.mlp.w_gate, blk.mlp.w_up,
-                       blk.mlp.w_down)
+                       blk.attn.wo)
+            if blk.moe is not None:
+                fill_moe(gen, blk.moe)
+            else:
+                fill_dense(gen, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down)
     return model
 
 
@@ -142,7 +148,6 @@ def _plan(params: DecoderLM, cfg: LMConfig
           ) -> Iterator[Tuple[Block, str, int, int]]:
     """(block, cache stack, index in the stack, window) in execution
     order: JAX's scan over "all", or over the (local, global) pairs."""
-    require_dense(cfg)
     for i, blk in enumerate(params.blocks):
         if cfg.local_global_alternating:
             if i % 2 == 0:
@@ -195,7 +200,16 @@ def _layer(p: Block, x: torch.Tensor, positions: torch.Tensor,
         q_chunk=cfg.attn_q_chunk)
     x = x + attn_out
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp(p.mlp, h2, act=cfg.act), k_rope, v_seq
+    return x + _ffn(p, h2, cfg), k_rope, v_seq
+
+
+def _ffn(p: Block, h: torch.Tensor, cfg: LMConfig,
+         no_drop: bool = False) -> torch.Tensor:
+    if cfg.moe:
+        return moe_ffn(p.moe, h, top_k=cfg.experts_top_k, act=cfg.act,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       no_drop=no_drop)
+    return mlp(p.mlp, h, act=cfg.act)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +298,8 @@ def forward_decode(params: DecoderLM, cfg: LMConfig, token,
             kv_override=(k_upd, v_upd, pos_upd, kv_valid))
         x = x + attn_out
         h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
-        x = x + mlp(blk.mlp, h2, act=cfg.act)
+        # decode never drops a token (worst-case capacity is cheap at S=1)
+        x = x + _ffn(blk, h2, cfg, no_drop=True)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = x[:, 0] @ params.head
     return softcap(logits, cfg.logit_softcap), cache

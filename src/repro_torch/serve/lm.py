@@ -4,7 +4,8 @@ The counterpart of ``src/repro/serve/lm.py``. ``generate`` keeps JAX's
 token bookkeeping: the prefill's argmax is the first new token, then
 ``max_new_tokens`` decode steps run (the last one's argmax is dropped, as
 JAX's scan drops its final carry), and the cache is float32 unless the
-caller asks for another type. It runs where the model's parameters live.
+caller asks for another type. It runs where the model's parameters live,
+on a dense or a MoE ``DecoderLM`` alike (decode never drops a token).
 """
 from __future__ import annotations
 

@@ -1076,3 +1076,84 @@ def test_engine_audit_on_the_card_reads_the_host_only_at_the_loop(card):
         eng.audit()
     assert repr(key) in str(err.value) and "copy to the host" in str(
         err.value)
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN and the recsys models: the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("E,k,cf,no_drop", [(8, 2, 1.0, False),
+                                            (64, 6, 1.25, False),
+                                            (64, 6, 1.25, True)])
+def test_moe_ffn_on_the_card_equals_the_cpu(card, E, k, cf, no_drop):
+    """Same weights and tokens on both devices: routing equal but for a
+    near-tie (top-k gap < 1e-4 on either side, ``compare_routing``), and
+    every row before such a flip within atol 1e-5 (float32, no TF32)."""
+    from repro_torch.models.moe import (capacity_of, compare_routing,
+                                        gate_logits, init_moe, moe_ffn,
+                                        moe_routing, topk_gap)
+    gen = torch.Generator().manual_seed(E + k)
+    cpu = init_moe(gen, 256, 128, E, device="cpu")
+    on_card = init_moe(gen, 256, 128, E, device="cpu").to(card)
+    on_card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 64, 256), generator=gen)
+    cap = capacity_of(64, k, E, cf, no_drop)
+    routes = []
+    for m, xx in ((cpu, x), (on_card, x.to(card))):
+        r = moe_routing(m, xx, top_k=k, capacity=cap)
+        routes.append([(r.top_idx.cpu(),
+                        topk_gap(gate_logits(m, xx), k).cpu())])
+    diff = compare_routing(*routes)
+    assert diff.wide == 0, diff
+    want = moe_ffn(cpu, x, top_k=k, capacity_factor=cf, no_drop=no_drop)
+    got = moe_ffn(on_card, x.to(card), top_k=k, capacity_factor=cf,
+                  no_drop=no_drop).cpu()
+    for b in range(2):
+        f = int(diff.first_tainted[b])
+        torch.testing.assert_close(got[b, :f], want[b, :f], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["fm", "autoint", "din", "sasrec"])
+def test_recsys_on_the_card_equals_the_cpu(card, arch):
+    """Each model at a cut vocabulary (widths as the config): the forward
+    at batch 64 and ``*_score_candidates`` over 3,000 candidates (chunks of
+    1,024, so the padded last chunk runs) within atol 1e-5."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys as R
+    cfg = get_config(arch)
+    if cfg.vocab_sizes:
+        cfg = dataclasses.replace(cfg, vocab_sizes=tuple(
+            min(v, 5000) for v in cfg.vocab_sizes))
+    else:
+        cfg = dataclasses.replace(cfg, item_vocab=20_000)
+    cpu = getattr(R, f"init_{arch}")(cfg, seed=1, device="cpu")
+    on_card = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(2)
+    n, chunk = 3000, 1024
+    if cfg.vocab_sizes:
+        ids = torch.stack([torch.randint(0, v, (64,), generator=g)
+                           for v in cfg.vocab_sizes], dim=1)
+        fwd_args = (ids,)
+        ctx = ids[0, :-1]
+        cand = torch.randint(0, cfg.vocab_sizes[-1], (n,), generator=g)
+        score_args = (ctx, cand)
+    else:
+        hist = torch.randint(0, cfg.item_vocab, (64, cfg.seq_len),
+                             generator=g)
+        mask = torch.arange(cfg.seq_len)[None, :] < torch.randint(
+            1, cfg.seq_len + 1, (64, 1), generator=g)
+        target = torch.randint(0, cfg.item_vocab, (64,), generator=g)
+        fwd_args = (hist, mask, target)
+        cand = torch.randint(0, cfg.item_vocab, (n,), generator=g)
+        score_args = (hist[0], mask[0], cand)
+    kw = dict(chunk=chunk) if arch in ("autoint", "din") else {}
+    fwd = getattr(R, f"{arch}_forward")
+    score = getattr(R, f"{arch}_score_candidates")
+    for fn, args, extra in ((fwd, fwd_args, {}), (score, score_args, kw)):
+        want = fn(cpu, cfg, *args, **extra)
+        got = fn(on_card, cfg, *(a.to(card) for a in args), **extra)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)

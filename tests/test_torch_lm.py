@@ -4,10 +4,11 @@ Layers (``rms_norm``, ``apply_rope``, ``attention`` with and without
 ``q_chunk``), the KV cache writes (``write_token``, ``prefill_write`` full
 and ring), the decoder's forwards (train, hidden, prefill with its cache,
 four decode steps across the ring boundary) and ``generate``, on JAX's own
-test flavours (``tests/test_models_lm.py``: dense GQA, SWA ring, gemma-style
-local/global with softcaps, QKV bias; MoE is not ported). The JAX
-parameters cross through ``models.convert.lm_from_jax``; inputs are numpy
-arrays from a seed, handed to both packages.
+test flavours (``tests/test_models_lm.py``: dense GQA, SWA ring,
+gemma-style local/global with softcaps, QKV bias; the MoE flavour is in
+``tests/test_torch_moe.py``). The JAX parameters cross through
+``models.convert.lm_from_jax``; inputs are numpy arrays from a seed, handed
+to both packages.
 
 Tolerances: atol 1e-5 for a single layer and the cache writes, atol 1e-4
 for whole forwards (JAX's own decode-vs-train test uses 1e-4): both run
@@ -41,10 +42,9 @@ from repro_torch.configs.base import LM_SHAPES, LMConfig
 from repro_torch.models import kv_cache as KV
 from repro_torch.models import layers as L
 from repro_torch.models.convert import lm_from_jax
-from repro_torch.models.transformer import (DecoderLM, forward_decode,
-                                            forward_hidden, forward_prefill,
-                                            forward_train, init_cache,
-                                            init_lm)
+from repro_torch.models.transformer import (forward_decode, forward_hidden,
+                                            forward_prefill, forward_train,
+                                            init_cache, init_lm)
 from repro_torch.serve import generate, serve_step
 
 LAYER_ATOL, FWD_ATOL, GAP = 1e-5, 1e-4, 1e-3
@@ -303,7 +303,7 @@ def test_generate_matches_jax_where_the_argmax_is_clear(run):
 
 
 # ---------------------------------------------------------------------------
-# configs, conversion and what is not ported
+# configs and conversion
 # ---------------------------------------------------------------------------
 
 def _same_config(cfg, jcfg):
@@ -326,25 +326,13 @@ def test_lm_configs_carry_across_and_the_registry_matches():
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()
     for arch in ("qwen2.5-3b", "internlm2-20b", "gemma2-27b",
-                 "colbert-text", "colbert-mm"):
+                 "mixtral-8x22b", "moonshot-v1-16b-a3b", "colbert-text",
+                 "colbert-mm"):
         _same_config(get_config(arch), JREGISTRY[arch])
     with pytest.raises(KeyError, match="unknown arch 'nope'; known: "):
         get_config("nope")
     assert [s.seq_len for s in LM_SHAPES] == [4096, 32768, 32768, 524288]
     assert get_config("qwen2.5-3b").param_count() == 3_397_105_664
-
-
-def test_moe_configs_raise_naming_the_roadmap():
-    cfg = LMConfig(**dataclasses.asdict(JREGISTRY["mixtral-8x22b"]))
-    small = dataclasses.replace(cfg, n_layers=2, d_model=8, n_heads=2,
-                                n_kv_heads=2, d_head=4, d_ff=8, vocab=16,
-                                moe_d_ff=8)
-    with pytest.raises(ValueError, match="Queue 1"):
-        DecoderLM(small, device="cpu")
-    dense = init_lm(LMConfig(**FLAVORS["dense-gqa"]), device="cpu")
-    with pytest.raises(ValueError, match="Queue 1"):
-        forward_train(dense, dataclasses.replace(dense.cfg, moe=True),
-                      np.zeros((1, 4), np.int32))
 
 
 def test_conversion_checks_shapes_and_init_is_seeded():
