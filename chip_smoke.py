@@ -82,7 +82,15 @@ Phases, in order:
      the CPU, both under the routing rule; FM, AutoInt, DIN and SASRec at
      full width (``serve_p99``, ``retrieval_cand`` over 10^6 candidates,
      card == CPU), and ``topk_bandit_generalized`` on the benchmark's grid
-     and on FM's components (see ``moe_and_recsys``).
+     and on FM's components (see ``moe_and_recsys``);
+ 14. training: Qwen2.5-3B at full width and depth in bf16 (B = 2 x 4,096,
+     remat, chunked CE, AdamW; step ms beside its bound, tokens/s, peak
+     memory, a profiled step), one step at 2 layers card == CPU and
+     microbatches 2 == 1, the crash-and-resume run bit for bit in a child
+     process (``--train-resume``) under deterministic algorithms, a
+     Moonlight-16B-A3B step at 2 layers card == CPU, PNA on three graph
+     shapes and its sharded loss, the recsys ``train_batch`` steps, and
+     the int8-compressed data-parallel step at S = 4 (see ``training``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -93,6 +101,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -112,7 +121,8 @@ MAX_CANDIDATES = 256
 K = 5
 STREAM_SEEDS = 3        # phase 7: each query under this many seeds
 TRIP_LIMIT = 4          # phase 7: trips per streaming slice
-HARNESS_QUERIES = 2     # phase 8: queries per method (cut to fit ~60 s)
+HARNESS_QUERIES = 1     # phase 8: queries per method (2 took ~146 s;
+                        # with phase 14 the script then passed 950 s)
 # Phase 12: decode logits against forward_train over 36 float32 layers of
 # products summed in another order (JAX's own test: 1e-4 at 2 layers of
 # width 64), and card against CPU embeddings (unit rows, 2 layers).
@@ -121,6 +131,11 @@ LM_ATOL, ENC_ATOL = 1e-3, 1e-5
 # flip under float noise, so two computations may route such a token
 # differently; recsys scores card against CPU in float32.
 MOE_TIE, REC_ATOL = 1e-4, 1e-5
+# Phase 14: PNA's std = sqrt(E[x^2] - E[x]^2 + 1e-8) cancels where a
+# node's messages are large and close, and the card's scatters add in
+# another (atomic) order: loss and per-leaf gradient errors relative to
+# the CPU's (tests/test_torch_gnn.py holds the CPU to JAX at 1e-4 / 1e-3).
+PNA_LOSS_REL, PNA_GRAD_REL = 1e-4, 1e-2
 NEG = float(np.float32(-3e38))   # the all-masked sentinel as float32
 PAD = 512                        # spin kernels that open every profile
 
@@ -2003,6 +2018,607 @@ def moe_and_recsys(dev, profiled_line, smi, t_start):
             for kname in launches["dense"]}
 
 
+def _train_state_leaves(state):
+    from repro_torch.ckpt.checkpoint import state_leaves
+    return {k: t.detach().clone() for k, t in state_leaves(state)}
+
+
+def train_resume_check(dev) -> dict:
+    """14(c), run in a child process (``--train-resume``): a ``Trainer``
+    on the JAX restart test's tiny config crashes at step 7 through
+    ``simulate_failure``, restores the step-5 checkpoint and must end on the
+    parameters and moments of an uninterrupted 12-step run bit for bit."""
+    import tempfile
+
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.dist.fault import simulate_failure
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_lm_train_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = LMConfig(name="tiny", n_layers=2, d_model=32, n_heads=2,
+                   n_kv_heads=2, d_head=16, d_ff=64, vocab=128)
+
+    def batch_fn(step):
+        rng = np.random.default_rng([123, step])
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16))).to(dev)
+        return {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+
+    def build(ckpt_dir):
+        opt = adamw(cosine_schedule(1e-3, 2, 12))
+        state = init_train_state(init_lm(cfg, seed=0, device=dev), opt)
+        return Trainer(make_lm_train_step(cfg, opt), batch_fn, state,
+                       TrainerConfig(total_steps=12, ckpt_every=5,
+                                     ckpt_dir=ckpt_dir, log_every=100,
+                                     async_ckpt=True))
+
+    t = time.perf_counter()
+    ref = _train_state_leaves(build(None).run())
+    with tempfile.TemporaryDirectory() as d:
+        tr = build(d)
+        fired = simulate_failure(lambda guard: tr.run(guard), fail_at_step=7)
+        tr.ckpt.wait()
+        tr2 = build(d)
+        tr2.maybe_restore()
+        out = _train_state_leaves(tr2.run())
+        start = tr2.start_step
+    differ = [k for k in ref if not torch.equal(ref[k], out[k])]
+    return dict(fired=fired, resumed_from=start, leaves=len(ref),
+                differ=differ, step=int(out["opt.step"]),
+                seconds=round(time.perf_counter() - t, 2),
+                deterministic=torch.are_deterministic_algorithms_enabled())
+
+
+def training(dev, profiled_line, smi, t_start):
+    """14. Training on the card (``repro_torch.train``, ``ckpt``,
+    ``models/gnn.py``): plain PyTorch and autograd, no ported kernel (the
+    JAX package's train steps reach no Pallas kernel). TF32 stays off, so
+    float32 products run in full float32.
+
+    (a) Qwen2.5-3B at full width and depth (36 layers, 3.397 B parameters)
+        in bf16, float32 AdamW moments: ``train_4k``'s 4,096 tokens at B =
+        2 (cut from its global batch of 256), ``remat=True``, the CE in
+        chunks of ``chunk_tokens`` (8,192 unless the reckoned peak does not
+        fit what is free), ``adamw(cosine_schedule)``, 4 steps on one
+        seeded batch: step ms (CUDA events, median of steps 2-4), tokens/s,
+        the bound by operations, peak memory, each step's loss and
+        grad_norm (the loss must be finite and fall), and a fifth step
+        profiled (device busy time, idle share, top kernels).
+    (b) Qwen2.5-3B at full width cut to 2 layers, float32: one train step
+        on the card against the same step on the CPU (loss, grad_norm,
+        updated parameters and moments), and ``num_microbatches=2`` against
+        1 on the gradients.
+    (c) Crash-safe resume (``train_resume_check``) in a child process with
+        ``torch.use_deterministic_algorithms(True)`` and
+        ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the embedding lookup's
+        backward (``index_put_`` with accumulate) and the CE's ``gather``
+        backward (``scatter_add_``) add with atomics in the default mode,
+        so two runs may differ in the last bit.
+    (d) Moonlight-16B-A3B at full width cut to 2 of 48 layers (its full
+        training state, 28 B x 16 bytes, fits no card), float32: a train
+        step at its capacity factor (tokens dropped) timed on the card;
+        the first step's loss and grad_norm held to the CPU's under the
+        routing rule of phase 13 (targets from a near-tie flip on masked).
+    (e) PNA at its full width (4 layers, d_hidden 75): train steps on
+        ``full_graph_sm`` (a random 2,708-node, 10,556-edge graph, d_feat
+        1,433), ``molecule`` (128 graphs of 30 nodes and 64 edges) and one
+        ``minibatch_lg`` batch (1,024 seeds, fanout 15 / 10, sampled from
+        a random 232,965-node graph, d_feat 602); card against CPU on loss
+        and gradients, and ``pna_loss_sharded`` at S = 4 on the one card
+        against ``pna_loss``.
+    (f) Recsys at each config's full width, float32: ``train_batch`` (B =
+        65,536) steps of FM, AutoInt, DIN and SASRec: step ms, the first
+        step held to the CPU's (loss, grad_norm, the updated rows the batch
+        touched and the dense weights), the loss falling over 3 steps.
+    (g) Compressed data parallelism: S = 4 shards on the one card, the
+        tiny config of (c), 25 steps of ``int8_rs_ag`` with error feedback
+        (the loss must fall by >= 0.3, JAX's bar), step ms with and without
+        compression, and the int8 bytes a shard sends a step.
+
+    Prints one ``phase 14 json`` line with every number."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    from repro_torch.models.moe import (compare_routing, record_routing,
+                                        routing_by_layer)
+    from repro_torch.models.transformer import (DecoderLM, forward_hidden,
+                                                init_lm)
+    from repro_torch.train.compressed_step import (
+        init_compressed_state, jax_leaf_groups,
+        make_compressed_lm_train_step)
+    from repro_torch.train.compression import int8_rs_ag_wire_bytes
+    from repro_torch.train.optimizer import adamw, cosine_schedule, \
+        global_norm
+    from repro_torch.train.train_step import (init_train_state, lm_grads,
+                                              lm_loss, make_gnn_train_step,
+                                              make_lm_train_step,
+                                              make_recsys_train_step,
+                                              named_params, value_and_grad)
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    summary = {}
+    child = None
+    if on_card:
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        held = torch.cuda.memory_allocated()
+        print(f"phase 14: torch.cuda.mem_get_info() free {free / 1e9:.2f} "
+              f"GB of {total / 1e9:.2f} GB; {held / 1e9:.2f} GB allocated by "
+              f"earlier phases [{smi}]", flush=True)
+        # (c) runs beside (a)-(b) in its own process
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                  "--train-resume"], env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+    else:
+        free, held = 0, 0
+    bf16_peak = 989e12        # dense bf16 tensor-core peak, H100 SXM
+    cpu = torch.device("cpu")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def event_ms(fn):
+        if not on_card:
+            t = time.perf_counter()
+            out = fn()
+            return (time.perf_counter() - t) * 1e3, out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    def to_cpu(model, cls_args):
+        twin = type(model)(*cls_args, device="cpu")
+        twin.load_state_dict(model.state_dict())
+        return twin
+
+    def rel_err(got, want):
+        """max |got - want| / max |want| over leaves of two name dicts."""
+        num = max(float((got[k].detach().cpu().float() - want[k].float())
+                        .abs().max()) for k in want)
+        den = max(float(want[k].float().abs().max()) for k in want)
+        return num / max(den, 1e-30)
+
+    try:
+        # (a) Qwen2.5-3B, full width and depth, bf16 --------------------------
+        cfg = get_config("qwen2.5-3b")
+        shape = {s.name: s for s in cfg.shapes}["train_4k"]
+        B, S = 2, shape.seq_len
+        V = cfg.vocab
+        t = time.perf_counter()
+        model = init_lm(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = adamw(cosine_schedule(3e-4, 1, 4))
+        state = init_train_state(model, opt)
+        sync()
+        init_s = time.perf_counter() - t
+        # reckon the peak: parameters, grads and moments, and the CE chunk
+        # (its bf16 and f32 logits, logsumexp's exp and the f32 gradient
+        # while the backward recomputes it: 16 bytes a logit; on an H100
+        # the peak was 18.6 GB above the state at 8,192 tokens, 14.9 a
+        # logit)
+        state_bytes = n_params * (2 + 2 + 4 + 4)
+        chunk_tokens = 8192
+        if on_card:
+            room = free - state_bytes - 3e9
+            while chunk_tokens > B and 16 * chunk_tokens * V > room:
+                chunk_tokens //= 2
+        ce_gb = 16 * min(chunk_tokens, B * S) * V / 1e9
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        seq = torch.randint(0, V, (B, S + 1), generator=gen, device=dev)
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        step = make_lm_train_step(cfg, opt, chunk_tokens=chunk_tokens)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        losses, gnorms, times = [], [], []
+        for i in range(4):
+            ms, (state, m) = event_ms(lambda: step(state, batch))
+            times.append(ms)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        peak = (torch.cuda.max_memory_allocated() - held) if on_card else 0
+        if not all(np.isfinite(losses + gnorms)):
+            fail(f"phase 14a: non-finite loss or grad_norm {losses} {gnorms}")
+        if not losses[-1] < losses[0]:
+            fail(f"phase 14a: the loss did not fall: {losses}")
+        step_ms = statistics.median(times[1:])
+        # a fifth step, profiled: device busy time, idle share, top kernels
+        print(profiled_line("phase 14a train step",
+                            lambda: step(state, batch), step_ms),
+              flush=True)
+        embed = cfg.vocab * cfg.d_model
+        flops = (6 * (n_params - embed) * B * S
+                 + 6 * B * S * S * cfg.n_heads * cfg.d_head * cfg.n_layers)
+        bound_ms = flops / bf16_peak * 1e3
+        summary["14a"] = dict(
+            model=cfg.name, params=n_params, B=B, S=S,
+            chunk_tokens=chunk_tokens, step_ms=round(step_ms, 2),
+            step_ms_each=[round(x, 2) for x in times],
+            tokens_per_s=round(B * S / step_ms * 1e3, 1),
+            bound_ms=round(bound_ms, 2), flops=flops,
+            peak_gb_above_earlier=round(peak / 1e9, 2),
+            reckoned_gb=round(state_bytes / 1e9 + ce_gb, 2),
+            losses=[round(x, 5) for x in losses],
+            grad_norms=[round(x, 4) for x in gnorms])
+        print(f"phase 14a {cfg.name}: {n_params} parameters, bf16, drawn in "
+              f"{init_s:.1f} s; B={B} x S={S} (train_4k cut from global "
+              f"batch {shape.global_batch}), remat, chunk_tokens "
+              f"{chunk_tokens}: step {step_ms:.1f} ms (median of steps 2-4; "
+              f"each {[round(x, 1) for x in times]}), "
+              f"{B * S / step_ms * 1e3:.0f} tokens/s, bound {bound_ms:.1f} ms "
+              f"by operations ({flops:.3e} FLOP at 989 TFLOP/s bf16); peak "
+              f"{peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB earlier "
+              f"phases hold (reckoned {state_bytes / 1e9:.1f} GB of state + "
+              f"{ce_gb:.1f} GB CE chunk); losses {losses}; grad_norm "
+              f"{gnorms} [{smi}]", flush=True)
+        del state, model, step, batch, seq
+        if on_card:
+            torch.cuda.empty_cache()
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+        # (b) consistency: 2 layers, f32, card vs CPU --------------------------
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        model = init_lm(cfg2, seed=SEED + 1, device=dev)
+        cpu_model = to_cpu(model, (cfg2, torch.float32))
+        g2 = torch.Generator(device="cpu").manual_seed(SEED + 1)
+        seq = torch.randint(0, V, (4, 33), generator=g2)
+        tk, tg = seq[:, :-1], seq[:, 1:]
+        b2 = {"tokens": tk[:2], "targets": tg[:2]}
+        opt = adamw(1e-4, eps=1e-4)
+        st_d = init_train_state(model, opt)
+        st_c = init_train_state(cpu_model, opt)
+        st_d, m_d = make_lm_train_step(cfg2, opt)(
+            st_d, {k: v.to(dev) for k, v in b2.items()})
+        st_c, m_c = make_lm_train_step(cfg2, opt)(st_c, b2)
+        errs = dict(
+            loss=abs(float(m_d["loss"]) - float(m_c["loss"])),
+            grad_norm_rel=abs(float(m_d["grad_norm"]) / float(m_c["grad_norm"])
+                              - 1),
+            params=max(float((p.detach().cpu() - q.detach()).abs().max())
+                       for (_, p), (_, q) in zip(
+                           model.named_parameters(),
+                           cpu_model.named_parameters())),
+            m_rel=rel_err(st_d.opt.m, st_c.opt.m))
+        lims = dict(loss=1e-4, grad_norm_rel=1e-4, params=1e-6, m_rel=1e-4)
+        bad = {k: v for k, v in errs.items() if not v <= lims[k]}
+        if bad:
+            fail(f"phase 14b: card vs CPU {bad} beyond {lims}")
+        l1, g1 = lm_grads(model, cfg2, tk.to(dev), tg.to(dev))
+        l2, gm = lm_grads(model, cfg2, tk.to(dev), tg.to(dev),
+                          num_microbatches=2)
+        mb_err = rel_err(gm, {k: v.float().cpu() for k, v in g1.items()})
+        if not (mb_err <= 1e-5 and abs(float(l1) - float(l2)) <= 1e-5):
+            fail(f"phase 14b: num_microbatches=2 vs 1: grads rel err "
+                 f"{mb_err:.3g}, loss {float(l1)} vs {float(l2)}")
+        summary["14b"] = dict(errs={k: float(f"{v:.3g}") for k, v in
+                                    errs.items()}, limits=lims,
+                              microbatch_grad_rel_err=float(f"{mb_err:.3g}"))
+        print(f"phase 14b {cfg.name} full width, 2 layers, f32, B=2 x 32: "
+              f"card vs CPU after one step: |loss| {errs['loss']:.3g}, "
+              f"grad_norm rel {errs['grad_norm_rel']:.3g}, params max abs "
+              f"{errs['params']:.3g} (lr 1e-4, eps 1e-4), m rel "
+              f"{errs['m_rel']:.3g} (limits {lims}); num_microbatches=2 vs "
+              f"1 (B=4): grads rel err {mb_err:.3g}", flush=True)
+        del model, cpu_model, st_d, st_c, g1, gm
+        if on_card:
+            torch.cuda.empty_cache()
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+        # (d) Moonlight-16B-A3B, full width, 2 layers, f32 --------------------
+        mcfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                                   n_layers=2)
+        model = init_lm(mcfg, seed=SEED + 2, device=dev)
+        m_params = sum(p.numel() for p in model.parameters())
+        cpu_model = to_cpu(model, (mcfg, torch.float32))
+        g3 = torch.Generator(device="cpu").manual_seed(SEED + 2)
+        seq = torch.randint(0, mcfg.vocab, (2, 65), generator=g3)
+        tk, tg = seq[:, :-1], seq[:, 1:].clone()
+        with torch.no_grad():
+            with record_routing(model) as log_d:
+                forward_hidden(model, mcfg, tk.to(dev))
+            with record_routing(cpu_model) as log_c:
+                forward_hidden(cpu_model, mcfg, tk)
+        diff = compare_routing(routing_by_layer(log_c, mcfg.n_layers),
+                               routing_by_layer(log_d, mcfg.n_layers),
+                               gap_tol=MOE_TIE)
+        if diff.wide:
+            fail(f"phase 14d: {diff.wide} routing flips at a gap >= {MOE_TIE}")
+        for b_i, f_i in enumerate(diff.first_tainted.tolist()):
+            tg[b_i, f_i:] = -1           # left out from the first flip on
+        dropped = sum(int((~r.routing.keep).sum()) for r in log_d)
+        opt = adamw(1e-4, eps=1e-4)
+        st_d = init_train_state(model, opt)
+        step = make_lm_train_step(mcfg, opt)
+        bm = {"tokens": tk.to(dev), "targets": tg.to(dev)}
+        ms1, (st_d, m_d) = event_ms(lambda: step(st_d, bm))
+        loss_d, gn_d = float(m_d["loss"]), float(m_d["grad_norm"])
+        l_c, g_c = value_and_grad(
+            lambda: lm_loss(cpu_model, mcfg, tk, tg), cpu_model)
+        gn_c = float(global_norm(g_c))
+        del g_c
+        ms2, (st_d, m_d2) = event_ms(lambda: step(st_d, bm))
+        err_l, err_g = abs(loss_d - float(l_c)), abs(gn_d / gn_c - 1)
+        if not (np.isfinite(loss_d) and err_l <= 1e-4 and err_g <= 1e-4):
+            fail(f"phase 14d: card loss {loss_d} grad_norm {gn_d} vs CPU "
+                 f"{float(l_c)} / {gn_c}")
+        summary["14d"] = dict(model=mcfg.name, layers=2, params=m_params,
+                              step_ms=round(ms2, 2), first_step_ms=round(ms1, 2),
+                              loss=round(loss_d, 5),
+                              loss_step2=round(float(m_d2["loss"]), 5),
+                              loss_err=float(f"{err_l:.3g}"),
+                              grad_norm_rel_err=float(f"{err_g:.3g}"),
+                              near_tie_flips=diff.near_ties,
+                              slots_dropped=dropped)
+        print(f"phase 14d {mcfg.name} full width, 2 of 48 layers, "
+              f"{m_params} parameters, f32, B=2 x 64, capacity factor "
+              f"{mcfg.moe_capacity_factor} ({dropped} slots dropped): step "
+              f"{ms2:.1f} ms (first {ms1:.1f}); loss {loss_d:.5f} -> "
+              f"{float(m_d2['loss']):.5f}; card vs CPU |loss| {err_l:.3g}, "
+              f"grad_norm rel {err_g:.3g}; {diff.near_ties} near-tie routing "
+              f"flips, 0 wide", flush=True)
+        del model, cpu_model, st_d, step
+        if on_card:
+            torch.cuda.empty_cache()
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+        # (e) PNA at full width ----------------------------------------------
+        gcfg = get_config("pna")
+        gshape = {s.name: s for s in gcfg.shapes}
+        graphs = {}
+        sm = gshape["full_graph_sm"]
+        graphs["full_graph_sm"] = G.random_graph(
+            sm.n_nodes, sm.n_edges, sm.d_feat, gcfg.n_classes, seed=SEED)
+        mol = gshape["molecule"]
+        graphs["molecule"] = G.batch_molecules(
+            mol.graph_batch, mol.n_nodes, mol.n_edges, mol.d_feat,
+            gcfg.n_classes, seed=SEED)
+        lg = gshape["minibatch_lg"]
+        # cut: 1/8 of the edges (mean in-degree 61.5, still above the
+        # fanout); the full 114.6 M-edge CSR took 49.0 s on the host
+        lg_edges = lg.n_edges // 8
+        t = time.perf_counter()
+        big = G.random_graph(lg.n_nodes, lg_edges, lg.d_feat,
+                             gcfg.n_classes, seed=SEED)
+        t_rand = time.perf_counter() - t
+        t = time.perf_counter()
+        csr = G.build_csr(lg.n_nodes, big.senders.numpy(),
+                          big.receivers.numpy())
+        t_csr = time.perf_counter() - t
+        t = time.perf_counter()
+        seeds = np.random.default_rng(SEED).choice(lg.n_nodes,
+                                                   lg.batch_nodes,
+                                                   replace=False)
+        graphs["minibatch_lg"] = G.sample_subgraph(
+            csr, big.feats.numpy(), big.labels.numpy(), seeds, lg.fanout,
+            seed=SEED)
+        t_sample = time.perf_counter() - t
+        del big, csr
+        print(f"phase 14e minibatch_lg graph: {lg.n_nodes} nodes, "
+              f"{lg_edges} edges (1/8 of the shape's {lg.n_edges}): drawn "
+              f"{t_rand:.1f} s, CSR {t_csr:.1f} s, "
+              f"{lg.batch_nodes} seeds sampled at fanout {lg.fanout} in "
+              f"{t_sample:.2f} s -> {graphs['minibatch_lg'].feats.shape[0]} "
+              f"nodes, {graphs['minibatch_lg'].senders.shape[0]} edges",
+              flush=True)
+        summary["14e"] = dict(csr_s=round(t_csr, 2), draw_s=round(t_rand, 2),
+                              minibatch_lg_edges=lg_edges)
+        for gname, g in graphs.items():
+            d_feat = g.feats.shape[1]
+            model = G.init_pna(gcfg, d_feat, seed=SEED, device=dev)
+            cpu_model = to_cpu(model, (gcfg, d_feat, torch.float32))
+            gd = g.to(dev)
+            l_c, g_c = value_and_grad(
+                lambda: G.pna_loss(cpu_model, gcfg, g), cpu_model)
+            opt = adamw(1e-3)
+            st = init_train_state(model, opt)
+            l_d, g_d = value_and_grad(lambda: G.pna_loss(model, gcfg, gd),
+                                      model)
+            gerr = max(float(torch.linalg.vector_norm(g_d[k].cpu() - g_c[k])
+                             / torch.linalg.vector_norm(g_c[k])) for k in g_c)
+            lerr = abs(float(l_d) / float(l_c) - 1)
+            if not (lerr <= PNA_LOSS_REL and gerr <= PNA_GRAD_REL):
+                fail(f"phase 14e {gname}: card vs CPU loss rel {lerr:.3g}, "
+                     f"grad rel {gerr:.3g} (limits {PNA_LOSS_REL}, "
+                     f"{PNA_GRAD_REL})")
+            step = make_gnn_train_step(gcfg, opt)
+            losses, times = [], []
+            for _ in range(3):
+                ms, (st, mm) = event_ms(lambda: step(st, gd))
+                times.append(ms)
+                losses.append(float(mm["loss"]))
+            if not all(np.isfinite(losses)):
+                fail(f"phase 14e {gname}: losses {losses}")
+            rec = dict(nodes=g.feats.shape[0], edges=g.senders.shape[0],
+                       d_feat=d_feat, step_ms=round(statistics.median(
+                           times[1:]), 3),
+                       losses=[round(x, 5) for x in losses],
+                       loss_rel_err=float(f"{lerr:.3g}"),
+                       grad_rel_err=float(f"{gerr:.3g}"))
+            if gname == "full_graph_sm":
+                n_sh = 4
+                s_, r_, m_ = G.partition_edges_by_dst(
+                    g.senders.numpy(), g.receivers.numpy(),
+                    g.feats.shape[0], n_sh)
+                gs = g._replace(senders=torch.from_numpy(s_),
+                                receivers=torch.from_numpy(r_),
+                                edge_mask=torch.from_numpy(m_)).to(dev)
+                fresh = G.init_pna(gcfg, d_feat, seed=SEED + 1, device=dev)
+                mesh = make_mesh((n_sh,), ("data",), device=dev)
+                l_s, g_s = value_and_grad(
+                    lambda: G.pna_loss_sharded(fresh, gcfg, gs, mesh), fresh)
+                l_1, g_1 = value_and_grad(
+                    lambda: G.pna_loss(fresh, gcfg, gd), fresh)
+                serr = max(float(torch.linalg.vector_norm(g_s[k] - g_1[k])
+                                 / torch.linalg.vector_norm(g_1[k]))
+                           for k in g_1)
+                slerr = abs(float(l_s) / float(l_1) - 1)
+                if not (slerr <= PNA_LOSS_REL and serr <= PNA_GRAD_REL):
+                    fail(f"phase 14e: pna_loss_sharded S={n_sh} vs pna_loss:"
+                         f" loss rel {slerr:.3g}, grad rel {serr:.3g}")
+                rec.update(sharded_loss_rel_err=float(f"{slerr:.3g}"),
+                           sharded_grad_rel_err=float(f"{serr:.3g}"))
+                del fresh
+            summary["14e"][gname] = rec
+            print(f"phase 14e pna {gname}: {rec}", flush=True)
+            del model, cpu_model, st, step, gd
+        del graphs
+        if on_card:
+            torch.cuda.empty_cache()
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+        # (f) recsys train_batch at full width -------------------------------
+        summary["14f"] = {}
+        for arch in ("fm", "autoint", "din", "sasrec"):
+            rcfg = get_config(arch)
+            nb = {s.name: s for s in rcfg.shapes}["train_batch"].batch
+            model = getattr(R, f"init_{arch}")(rcfg, seed=SEED, device=dev)
+            cpu_model = to_cpu(model, (rcfg, torch.float32))
+            gr = torch.Generator(device="cpu").manual_seed(SEED + 3)
+            if rcfg.vocab_sizes:
+                batch = {"ids": torch.stack(
+                    [torch.randint(0, v, (nb,), generator=gr)
+                     for v in rcfg.vocab_sizes], dim=1)}
+                table, offs = "table", R.field_offsets(rcfg.vocab_sizes)
+                rows = (batch["ids"][:4] + torch.as_tensor(offs)).reshape(-1)
+            else:
+                batch = {"hist_ids": torch.randint(
+                    0, rcfg.item_vocab, (nb, rcfg.seq_len), generator=gr),
+                    "target_ids": torch.randint(0, rcfg.item_vocab, (nb,),
+                                                generator=gr)}
+                batch["hist_mask"] = torch.arange(rcfg.seq_len)[None, :] < \
+                    torch.randint(1, rcfg.seq_len + 1, (nb, 1), generator=gr)
+                table = "item_table"
+                rows = batch["target_ids"][:16]
+            batch["labels"] = torch.randint(0, 2, (nb,), generator=gr).float()
+            opt = adamw(1e-3, eps=1e-4)
+            st_d, st_c = init_train_state(model, opt), \
+                init_train_state(cpu_model, opt)
+            step = make_recsys_train_step(rcfg, opt)
+            bd = {k: v.to(dev) for k, v in batch.items()}
+            losses, times = [], []
+            for i in range(3):
+                ms, (st_d, mm) = event_ms(lambda: step(st_d, bd))
+                times.append(ms)
+                losses.append(float(mm["loss"]))
+                if i == 0:
+                    after = {k: p.detach().clone() for k, p in
+                             model.named_parameters() if k != table}
+                    after[table] = getattr(model, table).detach()[
+                        rows.to(dev)].clone()
+                    gn_d = float(mm["grad_norm"])
+            st_c, mc = step(st_c, batch)
+            want = {k: p.detach() for k, p in cpu_model.named_parameters()
+                    if k != table}
+            want[table] = getattr(cpu_model, table).detach()[rows]
+            p_err = max(float((after[k].cpu() - want[k]).abs().max())
+                        for k in want)
+            l_err = abs(losses[0] - float(mc["loss"]))
+            g_err = abs(gn_d / float(mc["grad_norm"]) - 1)
+            if not (l_err <= 1e-5 and g_err <= 1e-4 and p_err <= 1e-5):
+                fail(f"phase 14f {arch}: card vs CPU |loss| {l_err:.3g}, "
+                     f"grad_norm rel {g_err:.3g}, params {p_err:.3g}")
+            if not (all(np.isfinite(losses)) and losses[2] < losses[0]):
+                fail(f"phase 14f {arch}: losses {losses}")
+            n_p = sum(p.numel() for p in model.parameters())
+            rec = dict(params=n_p, batch=nb,
+                       step_ms=round(statistics.median(times[1:]), 3),
+                       step_ms_each=[round(x, 3) for x in times],
+                       losses=[round(x, 6) for x in losses],
+                       loss_err=float(f"{l_err:.3g}"),
+                       grad_norm_rel_err=float(f"{g_err:.3g}"),
+                       rows_checked=int(rows.numel()),
+                       param_err=float(f"{p_err:.3g}"))
+            summary["14f"][arch] = rec
+            print(f"phase 14f {arch} full width f32, train_batch B={nb}: "
+                  f"{rec}", flush=True)
+            del model, cpu_model, st_d, st_c, after, bd
+            if on_card:
+                torch.cuda.empty_cache()
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+        # (g) compressed data parallel, S = 4 on the one card -----------------
+        tcfg = dataclasses.replace(cfg, name="tiny", n_layers=2, d_model=32,
+                                   n_heads=2, n_kv_heads=2, d_head=16,
+                                   d_ff=64, vocab=128, qkv_bias=False)
+        mesh = make_mesh((4,), ("data",), device=dev)
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, 128, (8, 16))).to(dev)
+        bg = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+        out = {}
+        for compress, n_steps in ((True, 25), (False, 6)):
+            opt = adamw(1e-3)
+            st = init_compressed_state(init_lm(tcfg, seed=0, device=dev),
+                                       opt)
+            step = make_compressed_lm_train_step(tcfg, opt, mesh,
+                                                 compress=compress)
+            losses, times = [], []
+            for _ in range(n_steps):
+                ms, (st, mm) = event_ms(lambda: step(st, bg))
+                times.append(ms)
+                losses.append(float(mm["loss"]))
+            out[compress] = (losses, statistics.median(times[1:]))
+            if compress:
+                params = named_params(st.params)
+                groups = jax_leaf_groups(tcfg, list(params))
+                wire = int8_rs_ag_wire_bytes(
+                    [sum(params[n].numel() for n in ns)
+                     for ns in groups.values()], mesh.size)
+                n_el = sum(p.numel() for p in params.values())
+        losses = out[True][0]
+        ring = 2 * (mesh.size - 1) * n_el * 4 // mesh.size
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.3):
+            fail(f"phase 14g: compressed losses {losses}")
+        summary["14g"] = dict(shards=4, steps=25, loss_first=round(
+            losses[0], 5), loss_last=round(losses[-1], 5),
+            step_ms_compressed=round(out[True][1], 3),
+            step_ms_uncompressed=round(out[False][1], 3),
+            int8_wire_bytes_per_shard_step=wire,
+            f32_ring_allreduce_bytes_per_shard_step=ring)
+        print(f"phase 14g compressed DP, 4 shards on {dev}, tiny LM ({n_el} "
+              f"parameters): loss {losses[0]:.4f} -> {losses[-1]:.4f} in 25 "
+              f"int8_rs_ag steps; step {out[True][1]:.2f} ms compressed, "
+              f"{out[False][1]:.2f} ms pmean; a shard sends {wire} int8 "
+              f"bytes a step (a ring f32 all-reduce: {ring})", flush=True)
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+        # (c) the child's resume check ----------------------------------------
+        if child is not None:
+            outs, errs = child.communicate(timeout=300)
+            child = None
+            line = [x for x in outs.splitlines()
+                    if x.startswith("train-resume ")]
+            if not line:
+                fail(f"phase 14c: the child printed no result: {errs[-2000:]}")
+            res = json.loads(line[-1][len("train-resume "):])
+            if not (res["fired"] and res["resumed_from"] == 5
+                    and not res["differ"] and res["step"] == 12
+                    and res["deterministic"]):
+                fail(f"phase 14c: {res}")
+            summary["14c"] = res
+            print(f"phase 14c resume on the card (child process, "
+                  f"deterministic algorithms, CUBLAS_WORKSPACE_CONFIG="
+                  f":4096:8): crashed at step 7, resumed from step 5, "
+                  f"{res['leaves']} leaves bit-equal to the uninterrupted "
+                  f"12-step run ({res['seconds']} s in the child)", flush=True)
+    finally:
+        if child is not None:
+            child.kill()
+            child.wait()
+    print(f"phase 14 json {json.dumps(summary)}", flush=True)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3300,6 +3916,10 @@ def main() -> int:
           flush=True)
     for kname, n in served.items():
         records[kname]["launches"] += n
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 14. training ------------------------------------------------------------
+    torch.cuda.empty_cache()              # phase 13's Moonlight
+    training(torch.device("cuda"), profiled_line, smi, t_start)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s (end)", flush=True)
 
     order = ("fused_reveal", "maxsim", "gather_maxsim", "fused_reveal_q",
@@ -3315,5 +3935,21 @@ def main() -> int:
     return 0
 
 
+def train_resume_main() -> int:
+    """``--train-resume``: phase 14(c) alone, in its own process, with
+    deterministic algorithms (the parent sets CUBLAS_WORKSPACE_CONFIG)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    res = train_resume_check(torch.device("cuda"))
+    print("train-resume " + json.dumps(res), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--train-resume"]:
+        sys.exit(train_resume_main())
     sys.exit(main())

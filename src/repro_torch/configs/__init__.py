@@ -1,12 +1,11 @@
-"""Config registry: ``get_config(<arch id>)`` -> config object, for what
-the port runs: the paper's retrieval configs, the LM backbones (dense and
-MoE) and the recsys models (the JAX package's ``repro.configs`` registry
-without the GNN config, which comes with the GNN)."""
+"""Config registry: ``get_config(<arch id>)`` -> config object: the
+paper's retrieval configs, the LM backbones (dense and MoE), the GNN and
+the recsys models (the JAX package's ``repro.configs`` registry)."""
 from repro_torch.configs.autoint import CONFIG as AUTOINT
-from repro_torch.configs.base import (LM_SHAPES, RECSYS_SHAPES, BanditConfig,
-                                      LMConfig, RecsysConfig,
-                                      RetrievalConfig, ShapeSpec,
-                                      criteo_like_vocab)
+from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+                                      BanditConfig, GNNConfig, LMConfig,
+                                      RecsysConfig, RetrievalConfig,
+                                      ShapeSpec, criteo_like_vocab)
 from repro_torch.configs.colbert_repro import MM_CONFIG, TEXT_CONFIG
 from repro_torch.configs.din import CONFIG as DIN
 from repro_torch.configs.fm import CONFIG as FM
@@ -15,6 +14,7 @@ from repro_torch.configs.internlm2_20b import CONFIG as INTERNLM2_20B
 from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL_8X22B
 from repro_torch.configs.moonshot_v1_16b_a3b import \
     CONFIG as MOONSHOT_V1_16B_A3B
+from repro_torch.configs.pna import CONFIG as PNA
 from repro_torch.configs.qwen2_5_3b import CONFIG as QWEN2_5_3B
 from repro_torch.configs.sasrec import CONFIG as SASREC
 
@@ -24,6 +24,7 @@ REGISTRY = {
     "internlm2-20b": INTERNLM2_20B,
     "gemma2-27b": GEMMA2_27B,
     "qwen2.5-3b": QWEN2_5_3B,
+    "pna": PNA,
     "autoint": AUTOINT,
     "sasrec": SASREC,
     "din": DIN,
@@ -43,6 +44,7 @@ def get_config(arch: str):
 __all__ = ["BanditConfig", "RetrievalConfig", "ShapeSpec", "TEXT_CONFIG",
            "MM_CONFIG", "LMConfig", "LM_SHAPES", "QWEN2_5_3B",
            "INTERNLM2_20B", "GEMMA2_27B", "MIXTRAL_8X22B",
-           "MOONSHOT_V1_16B_A3B", "RecsysConfig", "RECSYS_SHAPES",
+           "MOONSHOT_V1_16B_A3B", "GNNConfig", "GNN_SHAPES", "PNA",
+           "RecsysConfig", "RECSYS_SHAPES",
            "criteo_like_vocab", "FM", "AUTOINT", "DIN", "SASREC",
            "REGISTRY", "get_config"]

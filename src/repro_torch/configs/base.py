@@ -1,7 +1,8 @@
-"""Retrieval, Col-Bandit, LM and recsys config dataclasses (
-``repro.configs.base`` without the GNN config). Field names and defaults
-match the JAX package, so ``BanditConfig(**dataclasses.asdict(jax_cfg))``,
-``LMConfig(**...)`` and ``RecsysConfig(**...)`` carry a config across."""
+"""Retrieval, Col-Bandit, LM, GNN and recsys config dataclasses (the port
+of ``repro.configs.base``). Field names and defaults match the JAX
+package, so ``BanditConfig(**dataclasses.asdict(jax_cfg))``,
+``LMConfig(**...)``, ``GNNConfig(**...)`` and ``RecsysConfig(**...)``
+carry a config across."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,27 +12,36 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell: the retrieval, recsys and LM fields (the GNN
-    fields come with the GNN)."""
+    """One input-shape cell.
+
+    kind: "train" (a train step), "prefill", "decode" (one new token
+    against a KV cache) or "serve" (a forward scoring step)."""
     name: str
     kind: str
-    batch: int = 0
-    n_candidates: int = 0
+    # LM shapes
     seq_len: int = 0
     global_batch: int = 0
+    # GNN shapes
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    graph_batch: int = 0
+    # RecSys / retrieval shapes
+    batch: int = 0
+    n_candidates: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "fanout", tuple(self.fanout))
 
 
 def _shape(spec) -> ShapeSpec:
     """A ``ShapeSpec``, or one from ``dataclasses.asdict`` of the JAX
-    package's: fields this package does not have must be unset (0)."""
+    package's."""
     if isinstance(spec, ShapeSpec):
         return spec
-    names = {f.name for f in dataclasses.fields(ShapeSpec)}
-    extra = {k: v for k, v in spec.items() if k not in names and v}
-    if extra:
-        raise ValueError(f"ShapeSpec: fields {sorted(extra)} are not "
-                         "ported (GNN shapes)")
-    return ShapeSpec(**{k: v for k, v in spec.items() if k in names})
+    return ShapeSpec(**spec)
 
 
 LM_SHAPES: Tuple[ShapeSpec, ...] = (
@@ -42,6 +52,19 @@ LM_SHAPES: Tuple[ShapeSpec, ...] = (
               global_batch=128),
     ShapeSpec(name="long_500k", kind="decode", seq_len=524288,
               global_batch=1),
+)
+
+
+GNN_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec(name="full_graph_sm", kind="train", n_nodes=2708,
+              n_edges=10556, d_feat=1433),
+    ShapeSpec(name="minibatch_lg", kind="train", n_nodes=232965,
+              n_edges=114615892, batch_nodes=1024, fanout=(15, 10),
+              d_feat=602),
+    ShapeSpec(name="ogb_products", kind="train", n_nodes=2449029,
+              n_edges=61859140, d_feat=100),
+    ShapeSpec(name="molecule", kind="train", n_nodes=30, n_edges=64,
+              graph_batch=128, d_feat=16),
 )
 
 
@@ -162,6 +185,25 @@ class LMConfig:
         all_experts = self.n_experts * 3 * d * e_ff
         active = self.experts_top_k * 3 * d * e_ff
         return full - self.n_layers * (all_experts - active)
+
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    aggregators: Tuple[str, ...] = ("mean", "max", "min", "std")
+    scalers: Tuple[str, ...] = ("identity", "amplification", "attenuation")
+    n_classes: int = 47
+    towers: int = 1
+    family: str = "gnn"
+    shapes: Tuple[ShapeSpec, ...] = GNN_SHAPES
+
+    def __post_init__(self):
+        object.__setattr__(self, "shapes",
+                           tuple(_shape(s) for s in self.shapes))
+        for name in ("aggregators", "scalers"):
+            object.__setattr__(self, name, tuple(getattr(self, name)))
 
 
 @dataclass(frozen=True)

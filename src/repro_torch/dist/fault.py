@@ -1,6 +1,9 @@
-"""Serving-side fault-tolerance primitives (port of the serving part of
-``repro.dist.fault``; pure Python and numpy, the same code).
+"""Fault-tolerance primitives (port of ``repro.dist.fault``; pure Python
+and numpy, the same code).
 
+* :func:`simulate_failure` - a deterministic in-process "kill" for testing
+  the checkpoint/restart contract: crash at step k, restart, land bit for
+  bit on an uninterrupted run's parameters (``train/trainer.py``).
 * :class:`DeadlineBatcher` - the serving admission queue: release a batch
   when it is FULL or when the oldest request has waited past the deadline
   (padded to the batch shape so one warmed step serves both).
@@ -14,9 +17,6 @@
   rows, for exercising the finite-score quarantine guard end to end.
 * :func:`reshard` - place a host tree on a ``dist.mesh.Mesh`` by a
   matching tree of placements.
-
-The JAX module's ``simulate_failure`` (the training checkpoint/restart
-contract) belongs to the training slice and is not ported here.
 """
 from __future__ import annotations
 
@@ -30,6 +30,30 @@ import numpy as np
 import torch
 
 from repro_torch.dist.mesh import place
+
+
+class SimulatedFailure(RuntimeError):
+    """Raised by the failure guard to emulate a worker being killed."""
+
+
+def simulate_failure(run: Callable[[Callable[[int], None]], Any],
+                     fail_at_step: int) -> bool:
+    """Run ``run(guard)`` where ``guard(step)`` kills the run the first time
+    ``step == fail_at_step``. Returns True when the failure fired (the run
+    died mid-flight), False when the run finished before reaching the step.
+    """
+    fired = [False]
+
+    def guard(step: int) -> None:
+        if step == fail_at_step and not fired[0]:
+            fired[0] = True
+            raise SimulatedFailure(f"simulated failure at step {step}")
+
+    try:
+        run(guard)
+    except SimulatedFailure:
+        return True
+    return fired[0]
 
 
 class ChaosKill(RuntimeError):

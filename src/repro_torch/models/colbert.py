@@ -41,10 +41,12 @@ def init_li_head(cfg: LMConfig, *, seed: int = 0, dtype=torch.float32,
     return head
 
 
+@torch.no_grad()
 def encode_tokens(lm_params: DecoderLM, head: LIHead, cfg: LMConfig,
                   tokens, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) + validity mask -> (B, S, li_dim) L2-normalized token
-    embeddings (masked positions are zeroed), and the mask."""
+    embeddings (masked positions are zeroed), and the mask; no autograd
+    graph is built."""
     mask = torch.as_tensor(mask, device=lm_params.device)
     hidden = forward_hidden(lm_params, cfg, tokens)          # (B, S, D)
     emb = hidden @ head.proj                                 # (B, S, li_dim)

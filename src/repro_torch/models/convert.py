@@ -10,22 +10,34 @@ become blocks 2i and 2i + 1, JAX's execution order. A MoE layer's
 ``li_head_from_jax`` takes ``repro.models.colbert.init_li_head``'s tree,
 ``recsys_from_jax`` the trees of ``repro.models.recsys.init_fm`` /
 ``init_autoint`` / ``init_din`` / ``init_sasrec`` (the model by
-``cfg.interaction``). Each builds on ``device="cuda"`` unless the caller
-passes "cpu", in the arrays' own dtype unless ``dtype`` is given; a shape
-that does not match the config, or a leaf present in only one of the tree
-and the model, raises ValueError.
+``cfg.interaction``), ``gnn_from_jax`` ``repro.models.gnn.init_pna``'s
+(stacked layers -> ``PNA.layers``). Each builds on ``device="cuda"``
+unless the caller passes "cpu", in the arrays' own dtype unless ``dtype``
+is given; a shape that does not match the config, or a leaf present in
+only one of the tree and the model, raises ValueError.
+
+``train_state_from_jax`` carries a JAX ``TrainState`` (parameters and the
+AdamW ``step``, ``m``, ``v``, as numpy arrays) into a port ``TrainState``
+for an LM / MoE, recsys or GNN config, the moments through the same name
+maps (float32). ``tree_from_keystr`` nests a JAX checkpoint's flat
+key-path names (``.opt.m['all']['attn']['wq']``) back into dicts and
+lists, so a checkpoint the JAX package wrote converts too.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+import re
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.models import recsys as R
 from repro_torch.models.colbert import LIHead
+from repro_torch.models.gnn import PNA
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_step import TrainState
 
 _BLOCK_LEAVES = (("ln1",), ("ln2",), ("attn", "wq"), ("attn", "wk"),
                  ("attn", "wv"), ("attn", "wo"), ("attn", "bq"),
@@ -133,3 +145,95 @@ def recsys_from_jax(params_np: Mapping[str, Any], cfg: RecsysConfig, *,
     for name, param in dst.items():
         _load(param, src[name], name)
     return model
+
+
+def gnn_from_jax(params_np: Mapping[str, Any], cfg: GNNConfig, *,
+                 dtype: Optional[torch.dtype] = None,
+                 device="cuda") -> PNA:
+    d_feat = np.asarray(params_np["encode"]).shape[0]
+    model = PNA(cfg, d_feat, dtype or _dtype_of(params_np["encode"]), device)
+    for name in ("encode", "decode"):
+        _load(getattr(model, name), params_np[name], name)
+    layers = params_np["layers"]
+    n = np.asarray(layers["w_update"]).shape[0]
+    if n != cfg.n_layers or set(layers) != {"w_msg_src", "w_msg_dst",
+                                            "w_update"}:
+        raise ValueError(f"layers: {n} stacked layers with leaves "
+                         f"{sorted(layers)}, the config has {cfg.n_layers}")
+    for i, lp in enumerate(model.layers):
+        for name in layers:
+            _load(getattr(lp, name), np.asarray(layers[name])[i],
+                  f"layers[{i}]/{name}")
+    return model
+
+
+def model_from_jax(params_np: Mapping[str, Any], cfg, *,
+                   dtype: Optional[torch.dtype] = None,
+                   device="cuda") -> torch.nn.Module:
+    """The port's model of ``cfg``'s family from a JAX parameter tree."""
+    if isinstance(cfg, LMConfig):
+        return lm_from_jax(params_np, cfg, dtype=dtype, device=device)
+    if isinstance(cfg, RecsysConfig):
+        return recsys_from_jax(params_np, cfg, dtype=dtype, device=device)
+    if isinstance(cfg, GNNConfig):
+        return gnn_from_jax(params_np, cfg, dtype=dtype, device=device)
+    raise ValueError(f"no model for a {type(cfg).__name__}")
+
+
+def _field(x: Any, name: str) -> Any:
+    return x[name] if isinstance(x, Mapping) else getattr(x, name)
+
+
+def train_state_from_jax(state_np: Any, cfg, *,
+                         dtype: Optional[torch.dtype] = None,
+                         device="cuda") -> TrainState:
+    """A JAX ``TrainState`` (a NamedTuple of numpy trees, or the same as
+    nested dicts) as the port's: parameters in their dtype (or
+    ``dtype``), moments float32 keyed by the port's parameter names."""
+    model = model_from_jax(_field(state_np, "params"), cfg, dtype=dtype,
+                           device=device)
+    opt = _field(state_np, "opt")
+
+    def moments(tree) -> Dict[str, torch.Tensor]:
+        mod = model_from_jax(tree, cfg, dtype=torch.float32, device=device)
+        return {k: p.detach() for k, p in mod.named_parameters()}
+
+    m, v = moments(_field(opt, "m")), moments(_field(opt, "v"))
+    if set(m) != set(dict(model.named_parameters())):
+        raise ValueError("the moments' leaves differ from the parameters'")
+    step = torch.tensor(int(np.asarray(_field(opt, "step"))),
+                        dtype=torch.int32, device=device)
+    return TrainState(params=model, opt=AdamWState(step=step, m=m, v=v))
+
+
+_KEY = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
+
+
+def tree_from_keystr(arrays: Mapping[str, Any]) -> Dict[str, Any]:
+    """Nest flat ``jax.tree_util.keystr`` names: ``.field`` and
+    ``['key']`` become dict keys, ``[i]`` list indices."""
+    root: Dict[Any, Any] = {}
+    for name, leaf in arrays.items():
+        parts = []
+        pos = 0
+        for m in _KEY.finditer(name):
+            if m.start() != pos:
+                raise ValueError(f"cannot parse the key path {name!r}")
+            parts.append(m.group(1) or m.group(2) if m.group(3) is None
+                         else int(m.group(3)))
+            pos = m.end()
+        if pos != len(name) or not parts:
+            raise ValueError(f"cannot parse the key path {name!r}")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+    return lists(root)

@@ -10,8 +10,10 @@ filled with -1e30 (``scaled_dot_product_attention`` has no softcap and
 builds neither that fill nor the mask from positions).
 
 The parameter holders are ``nn.Module`` s (``Attention``, ``MLP``,
-``Dense``) whose parameters carry no gradient (inference); the functions
-keep JAX's names and take the module where JAX takes a parameter dict.
+``Dense``); the functions keep JAX's names and take the module where JAX
+takes a parameter dict. Parameters are made with ``requires_grad=False``,
+so a forward builds no autograd graph unless a train step
+(``repro_torch.train.train_step``) turns gradients on for its own call.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ _NEG = -1e30
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that takes no gradient until a train step asks for
+    one (``train.train_step.trainable``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

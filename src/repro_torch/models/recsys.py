@@ -11,7 +11,9 @@ with id 0, as JAX does, so their padded tail stays in range.
 
 ``*_score_candidates`` implement the retrieval_cand shape (1 query vs 10^6
 items); ``fm_candidate_components`` exposes FM's sum-decomposable component
-matrix to the generalized Col-Bandit (``core/generalized.py``).
+matrix to the generalized Col-Bandit (``core/generalized.py``). These
+serving functions run under ``torch.no_grad``; the ``*_forward`` s are
+also the training forwards (``train/train_step.py``).
 
 The parameter holders are ``nn.Module`` s (``FM``, ``AutoInt``, ``DIN``,
 ``SASRec``); the functions keep JAX's names and take the module where JAX
@@ -182,6 +184,7 @@ def _fm_context(params: FM, cfg: RecsysConfig, context_ids, cand_ids
     return ctx, params.table[cand_rows], params.linear[cand_rows]
 
 
+@torch.no_grad()
 def fm_score_candidates(params: FM, cfg: RecsysConfig, context_ids,
                         cand_ids) -> torch.Tensor:
     """retrieval_cand: fixed context fields (F-1 ids), candidate fills the
@@ -191,6 +194,7 @@ def fm_score_candidates(params: FM, cfg: RecsysConfig, context_ids,
     return lin_c[:, 0] + v_c @ ctx.sum(dim=0)
 
 
+@torch.no_grad()
 def fm_candidate_components(params: FM, cfg: RecsysConfig, context_ids,
                             cand_ids) -> torch.Tensor:
     """(N, F) component matrix for the generalized bandit: column f is the
@@ -270,6 +274,7 @@ def autoint_forward(params: AutoInt, cfg: RecsysConfig,
     return dense(params.out, x.reshape(x.shape[0], -1))[:, 0]
 
 
+@torch.no_grad()
 def autoint_score_candidates(params: AutoInt, cfg: RecsysConfig,
                              context_ids, cand_ids,
                              chunk: int = 8192) -> torch.Tensor:
@@ -350,6 +355,7 @@ def din_forward(params: DIN, cfg: RecsysConfig, hist_ids, hist_mask,
     return _mlp_stack(params.mlp, z)[:, 0]
 
 
+@torch.no_grad()
 def din_score_candidates(params: DIN, cfg: RecsysConfig, hist_ids,
                          hist_mask, cand_ids,
                          chunk: int = 8192) -> torch.Tensor:
@@ -450,6 +456,7 @@ def sasrec_forward(params: SASRec, cfg: RecsysConfig, hist_ids, hist_mask,
     return (u * t).sum(dim=-1)
 
 
+@torch.no_grad()
 def sasrec_score_candidates(params: SASRec, cfg: RecsysConfig, hist_ids,
                             hist_mask, cand_ids) -> torch.Tensor:
     """1 user vs N candidates: one user-state pass + (N, D) @ (D,) matvec."""

@@ -17,8 +17,11 @@ local and global layer, whose K/V live in the "local" (ring, size window)
 and "global" (full) cache stacks at index i. A MoE block (``cfg.moe``)
 holds ``moe`` in place of ``mlp``: the train, hidden and prefill forwards
 route with ``cfg.moe_capacity_factor`` (tokens beyond capacity dropped),
-decode with ``no_drop=True``, as in JAX. ``remat`` is accepted and changes
-no value (its checkpointed backward comes with training). JAX's
+decode with ``no_drop=True``, as in JAX. ``remat=True`` recomputes the
+forward in the backward (``torch.utils.checkpoint``, non-reentrant):
+``forward_train`` checkpoints each layer (each local/global pair for
+gemma2), ``forward_hidden`` nests the checkpoints sqrt(L)-style as JAX
+does; the values and gradients are the same bit for bit. JAX's
 ``flash_decode`` branch (split-K decode over a sequence-sharded cache)
 belongs to the mesh path and is not here.
 
@@ -28,10 +31,11 @@ ids are moved there, and nothing falls back to the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import kv_cache as KV
@@ -216,26 +220,67 @@ def _ffn(p: Block, h: torch.Tensor, cfg: LMConfig,
 # forward passes
 # ---------------------------------------------------------------------------
 
+def _units(params: DecoderLM, cfg: LMConfig) -> List[List[Tuple[Block, int]]]:
+    """The stack JAX scans over, in execution order: one (block, window)
+    per layer, or gemma2's (local, global) pairs."""
+    plan = [(blk, window) for blk, _, _, window in _plan(params, cfg)]
+    n = 2 if cfg.local_global_alternating else 1
+    return [plan[i:i + n] for i in range(0, len(plan), n)]
+
+
+def _run(x: torch.Tensor, units, positions: torch.Tensor, cfg: LMConfig,
+         remat: bool) -> torch.Tensor:
+    """The units in order, each under its own checkpoint when ``remat``."""
+    for unit in units:
+        if remat:
+            x = checkpoint(_run, x, [unit], positions, cfg, False,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            for blk, window in unit:
+                x, _, _ = _layer(blk, x, positions, cfg, window)
+    return x
+
+
+def _embed(params: DecoderLM, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+    tokens = _token_ids(params, tokens)
+    B, S = tokens.shape
+    return params.embed[tokens], _positions(B, S, tokens.device)
+
+
 def forward_hidden(params: DecoderLM, cfg: LMConfig, tokens, *,
                    remat: bool = False) -> torch.Tensor:
     """tokens (B, S) -> final hidden states (B, S, D) (no LM head): the
-    trunk of the ColBERT late-interaction encoder. ``remat`` changes no
-    value."""
-    del remat
-    tokens = _token_ids(params, tokens)
-    B, S = tokens.shape
-    x = params.embed[tokens]
-    positions = _positions(B, S, tokens.device)
-    for blk, _, _, window in _plan(params, cfg):
-        x, _, _ = _layer(blk, x, positions, cfg, window)
+    trunk of LM training (the head applied chunked in ``train_step``) and
+    of the ColBERT late-interaction encoder. ``remat=True`` nests the
+    checkpoints (JAX's sqrt-L scheme): the n units of the stack are cut
+    into f outer blocks of n / f, f the largest divisor with f * f <= n;
+    each block is checkpointed and holds a checkpointed loop over its
+    units, so the backward keeps f + n / f carries, not n."""
+    x, positions = _embed(params, tokens)
+    units = _units(params, cfg)
+    remat = remat and torch.is_grad_enabled()
+    n = len(units)
+    f = max((d for d in range(1, n + 1) if n % d == 0 and d * d <= n),
+            default=1)
+    if remat and f > 1:
+        per = n // f
+        for b in range(f):
+            x = checkpoint(_run, x, units[b * per:(b + 1) * per], positions,
+                           cfg, True, use_reentrant=False,
+                           preserve_rng_state=False)
+    else:
+        x = _run(x, units, positions, cfg, remat)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 def forward_train(params: DecoderLM, cfg: LMConfig, tokens, *,
                   remat: bool = True) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V). Full causal (+window) attention;
-    inference values only (``remat`` changes none)."""
-    x = forward_hidden(params, cfg, tokens, remat=remat)
+    ``remat=True`` checkpoints each layer (each gemma2 pair)."""
+    x, positions = _embed(params, tokens)
+    x = _run(x, _units(params, cfg), positions, cfg,
+             remat and torch.is_grad_enabled())
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return softcap(x @ params.head, cfg.logit_softcap)
 
 

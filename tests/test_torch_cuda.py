@@ -1157,3 +1157,102 @@ def test_recsys_on_the_card_equals_the_cpu(card, arch):
         got = fn(on_card, cfg, *(a.to(card) for a in args), **extra)
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# training (chip_smoke.py phase 14 (b)): plain PyTorch and autograd on the
+# card against the same step on the CPU, float32 with TF32 off
+# ---------------------------------------------------------------------------
+
+TRAIN_LM = dict(name="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                d_head=16, d_ff=96, vocab=512, qkv_bias=True)
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _lm_twins(card, spec, seed=0):
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.models.transformer import DecoderLM, init_lm
+    cfg = LMConfig(**spec)
+    model = init_lm(cfg, seed=seed, device="cpu")
+    twin = DecoderLM(cfg, torch.float32, card)
+    twin.load_state_dict(model.state_dict())
+    return cfg, model, twin
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+def test_lm_train_step_card_matches_cpu(card, no_tf32, mb):
+    """One step of make_lm_train_step (remat, chunked CE, AdamW eps 1e-4)
+    on the card and on the CPU: loss atol 1e-5, grad_norm rtol 1e-5,
+    updated parameters atol 1e-6 (lr 1e-4)."""
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import init_train_state, \
+        make_lm_train_step
+    cfg, cpu, dev = _lm_twins(card, TRAIN_LM)
+    g = torch.Generator().manual_seed(1)
+    seq = torch.randint(0, cfg.vocab, (4, 33), generator=g)
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:].clone()}
+    batch["targets"][1, :5] = -1
+    opt = adamw(1e-4, eps=1e-4)
+    step = make_lm_train_step(cfg, opt, chunk_tokens=32, num_microbatches=mb)
+    s_c, m_c = step(init_train_state(cpu, opt), batch)
+    s_d, m_d = step(init_train_state(dev, opt),
+                    {k: v.to(card) for k, v in batch.items()})
+    assert m_d["loss"].device.type == "cuda"
+    torch.testing.assert_close(m_d["loss"].cpu(), m_c["loss"], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(m_d["grad_norm"].cpu(), m_c["grad_norm"],
+                               rtol=1e-5, atol=0)
+    for (k, p), (_, q) in zip(dev.named_parameters(),
+                              cpu.named_parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0,
+                                   atol=1e-6, msg=k)
+        assert not p.requires_grad
+
+
+def test_microbatches_on_card_match_one_batch(card, no_tf32):
+    """num_microbatches=2 against 1 on the card's gradients (rows with
+    equal target counts: the mean of the two means is the batch mean;
+    rtol 1e-4 / atol 1e-6: the embedding's backward adds a token's rows
+    with atomics, in another order in each split)."""
+    from repro_torch.train.train_step import lm_grads
+    cfg, _, dev = _lm_twins(card, TRAIN_LM, seed=2)
+    g = torch.Generator().manual_seed(3)
+    seq = torch.randint(0, cfg.vocab, (4, 33), generator=g).to(card)
+    l1, g1 = lm_grads(dev, cfg, seq[:, :-1], seq[:, 1:])
+    l2, g2 = lm_grads(dev, cfg, seq[:, :-1], seq[:, 1:], num_microbatches=2)
+    torch.testing.assert_close(l2, l1, rtol=0, atol=1e-6)
+    for k in g1:
+        assert g2[k].dtype == torch.float32
+        torch.testing.assert_close(g2[k], g1[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)
+
+
+def test_pna_train_step_card_matches_cpu(card, no_tf32):
+    """One PNA step on the card against the CPU: the scatters add with
+    atomics there, and std's cancellation amplifies the order (loss rtol
+    1e-4, grad_norm rtol 1e-3)."""
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import init_train_state, \
+        make_gnn_train_step
+    cfg = GNNConfig(name="pna", n_layers=3, d_hidden=16, n_classes=5)
+    cpu = G.init_pna(cfg, 8, seed=0, device="cpu")
+    dev = G.PNA(cfg, 8, torch.float32, card)
+    dev.load_state_dict(cpu.state_dict())
+    graph = G.random_graph(64, 300, 8, 5, seed=1)
+    opt = adamw(1e-3)
+    step = make_gnn_train_step(cfg, opt)
+    _, m_c = step(init_train_state(cpu, opt), graph)
+    _, m_d = step(init_train_state(dev, opt), graph.to(card))
+    torch.testing.assert_close(m_d["loss"].cpu(), m_c["loss"], rtol=1e-4,
+                               atol=0)
+    torch.testing.assert_close(m_d["grad_norm"].cpu(), m_c["grad_norm"],
+                               rtol=1e-3, atol=0)

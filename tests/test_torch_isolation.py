@@ -21,7 +21,7 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     for name in ("torch_quickstart", "torch_serve_retrieval",
-                 "torch_serve_stream"):
+                 "torch_serve_stream", "torch_train_lm_small"):
         yield os.path.join(ROOT, "examples", f"{name}.py")
 
 
