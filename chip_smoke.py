@@ -90,7 +90,14 @@ Phases, in order:
      process (``--train-resume``) under deterministic algorithms, a
      Moonlight-16B-A3B step at 2 layers card == CPU, PNA on three graph
      shapes and its sharded loss, the recsys ``train_batch`` steps, and
-     the int8-compressed data-parallel step at S = 4 (see ``training``).
+     the int8-compressed data-parallel step at S = 4 (see ``training``);
+ 15. long-context decode: Qwen2.5-3B at full width and depth over
+     ``long_500k``'s 524,288-slot bf16 cache, split-K over 4 sequence
+     shards on the card against the plain decode (ms a step, bound, idle
+     share, peak; the gate in float32), gemma2-27b's first layer pair on a
+     (2, 4) mesh with batch blocks, the ring collectives on 4 shards, and
+     the thread-access recorder on the continuous engine (see
+     ``long_context``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -136,6 +143,11 @@ MOE_TIE, REC_ATOL = 1e-4, 1e-5
 # another (atomic) order: loss and per-leaf gradient errors relative to
 # the CPU's (tests/test_torch_gnn.py holds the CPU to JAX at 1e-4 / 1e-3).
 PNA_LOSS_REL, PNA_GRAD_REL = 1e-4, 1e-2
+# Phase 15(b): a row block's product may take another cuBLAS algorithm than
+# the whole one; each bf16 output is then within one bf16 ulp (2^-7 of its
+# value) of the other, and RING_ATOL covers outputs near 0 (the products of
+# N(0, 1) bf16 inputs over K = 2,048 are ~45 in size).
+RING_RTOL, RING_ATOL = 2.0 ** -7, 1e-2
 NEG = float(np.float32(-3e38))   # the all-masked sentinel as float32
 PAD = 512                        # spin kernels that open every profile
 
@@ -2271,7 +2283,7 @@ def training(dev, profiled_line, smi, t_start):
         cfg2 = dataclasses.replace(cfg, n_layers=2)
         model = init_lm(cfg2, seed=SEED + 1, device=dev)
         cpu_model = to_cpu(model, (cfg2, torch.float32))
-        g2 = torch.Generator(device="cpu").manual_seed(SEED + 1)
+        g2 = torch.Generator(device="cpu").manual_seed(1)
         seq = torch.randint(0, V, (4, 33), generator=g2)
         tk, tg = seq[:, :-1], seq[:, 1:]
         b2 = {"tokens": tk[:2], "targets": tg[:2]}
@@ -2321,7 +2333,7 @@ def training(dev, profiled_line, smi, t_start):
         model = init_lm(mcfg, seed=SEED + 2, device=dev)
         m_params = sum(p.numel() for p in model.parameters())
         cpu_model = to_cpu(model, (mcfg, torch.float32))
-        g3 = torch.Generator(device="cpu").manual_seed(SEED + 2)
+        g3 = torch.Generator(device="cpu").manual_seed(2)
         seq = torch.randint(0, mcfg.vocab, (2, 65), generator=g3)
         tk, tg = seq[:, :-1], seq[:, 1:].clone()
         with torch.no_grad():
@@ -2483,7 +2495,7 @@ def training(dev, profiled_line, smi, t_start):
             nb = {s.name: s for s in rcfg.shapes}["train_batch"].batch
             model = getattr(R, f"init_{arch}")(rcfg, seed=SEED, device=dev)
             cpu_model = to_cpu(model, (rcfg, torch.float32))
-            gr = torch.Generator(device="cpu").manual_seed(SEED + 3)
+            gr = torch.Generator(device="cpu").manual_seed(3)
             if rcfg.vocab_sizes:
                 batch = {"ids": torch.stack(
                     [torch.randint(0, v, (nb,), generator=gr)
@@ -2617,6 +2629,411 @@ def training(dev, profiled_line, smi, t_start):
     print(f"phase 14 json {json.dumps(summary)}", flush=True)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; elapsed "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def long_context(dev, index, ds, cand, profiled_line, smi, t_start,
+                 cache_slots=0):
+    """15. Long-context decode over a sequence-sharded KV cache, the ring
+    collectives and the thread-access recorder (``repro_torch.dist``,
+    ``repro_torch.analysis``): split-K decode is plain PyTorch (``jnp`` in
+    the JAX package), so only (c) launches kernels.
+
+    (a) Qwen2.5-3B at full width and depth at ``long_500k`` (B = 1, a
+        524,288-slot cache; ``cache_slots`` overrides it for a rehearsal),
+        bf16 weights and a bf16 cache: K/V of positions 0 .. S - 33 drawn
+        seeded (a 524k-token prefill does not fit: one 2,048-query chunk's
+        float32 logits over 524k keys are 68.7 GB), then 32 decode steps
+        with split-K off (greedy from a seeded token) and the same 32 with
+        it on, teacher-forced on the first run's tokens, over a (1, 4)
+        ("data", "model") mesh on the card, so 4 sequence shards of 131,072
+        slots are views of the one cache: ms a step (CUDA events, median of
+        steps 2-32) for both, the byte bound, peak memory above what earlier
+        phases hold, one profiled step of each (device busy, idle share),
+        and bf16's max |split-K - plain| logits (reported). Then the gate,
+        in float32 at full depth over a float32 cache of the same slots: 4
+        steps each way, logits within LM_ATOL and greedy ids equal wherever
+        the plain run's top-2 gap exceeds 2 * LM_ATOL (phase 12's rule).
+    (a') gemma2-27b at full width cut to 2 layers (one local / global pair:
+        window 4,096 and softcaps), float32, B = 2 on a (2, 4) mesh (batch
+        blocks over "data"): a 4,100-token prefill so the ring wraps, then 4
+        steps each way under the same rule.
+    (b) The ring collectives on 4 shards of the card: ``ring_all_gather``
+        of a (4 x 2,048, 2,048) bf16 tensor equals ``torch.cat`` bit for
+        bit on every shard; ``ring_matmul`` of (8,192, 2,048) x (2,048,
+        11,008) bf16 equals ``x @ w`` within one bf16 ulp (RING_RTOL) plus
+        RING_ATOL, since cuBLAS may pick another algorithm for a row block
+        (reduced-precision bf16 reductions off for both); the bytes noted
+        per hop.
+    (c) The port's ``ThreadAccessRecorder`` wraps an
+        ``AsyncRetrievalEngine`` in continuous mode serving 48 requests on
+        phase 4's f32 corpus (phase 9's stream): ``violations() == []``,
+        and the completions equal an unrecorded engine's bit for bit.
+
+    Prints one ``phase 15 json`` line; returns the kernel launches of
+    (c)'s recorded run."""
+    from repro_torch.analysis.recorder import ThreadAccessRecorder
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives
+    from repro_torch.dist import flash_decode as FD
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.dist.sharding import lm_cache_specs
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import (forward_prefill, init_cache,
+                                                init_lm)
+    from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig,
+                                   Request, serve_step)
+    from repro_torch.serve import engine as engine_mod
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    bw, _ = peaks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev)
+    summary = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def event_ms(fn):
+        """Device-ordered ms of one call of fn (CUDA events), and its
+        result."""
+        if not on_card:
+            t = time.perf_counter()
+            out = fn()
+            return (time.perf_counter() - t) * 1e3, out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    @contextlib.contextmanager
+    def split_k(mesh, batch):
+        spec = lm_cache_specs(mesh, batch)["pos"]
+        FD.configure(mesh, *spec)
+        try:
+            yield
+        finally:
+            FD.configure(None, None, None)
+
+    def decode_pair(model, cfg, cache, tok, pos0, steps, mesh, restore):
+        """``steps`` greedy plain steps from ``tok`` at ``pos0``, then
+        ``restore()`` and the same steps with split-K on ``mesh``,
+        teacher-forced on the plain run's tokens: (plain logits, split-K
+        logits, plain ms, split-K ms) per step."""
+        plain, fd, toks = [], [], [tok]
+        with torch.no_grad():
+            for t in range(steps):
+                ms, (logits, cache) = event_ms(lambda: serve_step(
+                    model, cfg, toks[t], pos0 + t, cache))
+                plain.append((logits.float(), ms))
+                toks.append(torch.argmax(logits, -1).to(torch.int32))
+            restore()
+            with split_k(mesh, tok.shape[0]):
+                for t in range(steps):
+                    ms, (logits, cache) = event_ms(lambda: serve_step(
+                        model, cfg, toks[t], pos0 + t, cache))
+                    fd.append((logits.float(), ms))
+        return plain, fd, toks
+
+    def gate(label, plain, fd):
+        """Split-K logits within LM_ATOL of the plain run's; greedy ids
+        equal wherever the plain top-2 gap exceeds 2 * LM_ATOL."""
+        err, flips, checked, total = 0.0, 0, 0, 0
+        for (p, _), (f, _) in zip(plain, fd):
+            if not (torch.isfinite(p).all() and torch.isfinite(f).all()):
+                fail(f"phase 15{label}: logits are not finite")
+            err = max(err, float((f - p).abs().max()))
+            top2 = torch.topk(p, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_ATOL
+            same = torch.argmax(f, -1) == torch.argmax(p, -1)
+            checked += int(clear.sum())
+            flips += int((clear & ~same).sum())
+            total += p.shape[0]
+        if err > LM_ATOL or flips:
+            fail(f"phase 15{label}: max |split-K - plain| {err:.3g} (atol "
+                 f"{LM_ATOL}), {flips} greedy ids differ")
+        print(f"phase 15{label}: split-K logits == plain within atol "
+              f"{LM_ATOL} (max_abs_err {err:.3g}); greedy ids equal on "
+              f"{checked} of {total} steps with a top-2 gap > "
+              f"{2 * LM_ATOL} [{smi}]", flush=True)
+        return err
+
+    # (a) Qwen2.5-3B at long_500k, bf16 ------------------------------------
+    cfg = get_config("qwen2.5-3b")
+    shape = {s.name: s for s in cfg.shapes}["long_500k"]
+    S = cache_slots or shape.seq_len
+    B, STEPS = shape.global_batch, 32
+    pos0 = S - STEPS
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev)
+
+    def filled_cache(dtype):
+        """A (B, S) cache with seeded K/V at positions 0 .. pos0 - 1."""
+        cache = init_cache(cfg, B, S, dtype, dev)
+        st = cache["all"]
+        g = torch.Generator(device=dev).manual_seed(11)
+        for layer in range(cfg.n_layers):       # one layer's draw at a time
+            st.k[layer].normal_(generator=g)
+            st.v[layer].normal_(generator=g)
+        st.pos[:, :pos0] = torch.arange(pos0, dtype=torch.int32, device=dev)
+        return cache
+
+    def reset(cache):
+        return lambda: cache["all"].pos[:, pos0:].fill_(-1)
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = init_lm(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    cache = filled_cache(torch.bfloat16)
+    sync()
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    st = cache["all"]
+    cache_bytes = 2 * st.k.numel() * st.k.element_size()
+    print(f"phase 15a qwen2.5-3b long_500k: B={B}, {S} cache slots in "
+          f"bf16 ({cache_bytes / 1e9:.2f} GB K/V, positions 0..{pos0 - 1} "
+          f"drawn from seed 11), weights {w_bytes / 1e9:.2f} GB bf16; built "
+          f"in {time.perf_counter() - t:.1f} s; split-K mesh {mesh.shape} on "
+          f"{dev}, {S // 4} slots a sequence shard [{smi}]", flush=True)
+    tok = torch.randint(0, cfg.vocab, (B,), generator=gen.manual_seed(12),
+                        device=dev, dtype=torch.int32)
+    plain, fd, toks = decode_pair(model, cfg, cache, tok, pos0, STEPS, mesh,
+                                  reset(cache))
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    plain_ms = statistics.median(ms for _, ms in plain[1:])
+    fd_ms = statistics.median(ms for _, ms in fd[1:])
+    dec_bytes = w_bytes - (cfg.vocab - B) * cfg.d_model * 2 + cache_bytes
+    bound_ms = dec_bytes / bw * 1e3
+    err16 = max(float((f - p).abs().max()) for (p, _), (f, _) in
+                zip(plain, fd))
+    same16 = sum(int((torch.argmax(f, -1) == torch.argmax(p, -1)).sum())
+                 for (p, _), (f, _) in zip(plain, fd))
+    if not all(torch.isfinite(x).all() for x, _ in plain + fd):
+        fail("phase 15a: bf16 decode logits are not finite")
+    print(f"phase 15a decode bf16, {STEPS} steps at positions {pos0}.."
+          f"{S - 1}: plain median {plain_ms:.3f} ms a step (min "
+          f"{min(ms for _, ms in plain[1:]):.3f}, max "
+          f"{max(ms for _, ms in plain[1:]):.3f}); split-K over 4 shards "
+          f"{fd_ms:.3f} ms (min {min(ms for _, ms in fd[1:]):.3f}, max "
+          f"{max(ms for _, ms in fd[1:]):.3f}); split-K / plain "
+          f"{fd_ms / plain_ms:.3f}; bound {bound_ms:.3f} ms by bytes "
+          f"({dec_bytes / 1e9:.2f} GB / {bw / 1e12} TB/s); peak memory "
+          f"{(peak - resident) / 1e9:.2f} GB above the {resident / 1e9:.2f} "
+          f"GB earlier phases hold; bf16 max |split-K - plain| logits "
+          f"{err16:.4g}, greedy ids equal on {same16} of {STEPS * B} steps "
+          f"(reported; the gate runs in float32 below) [{smi}]", flush=True)
+    last = toks[-2]
+    with torch.no_grad():
+        print(profiled_line("phase 15a plain decode step", lambda: serve_step(
+            model, cfg, last, S - 1, cache), plain_ms), f"[{smi}]",
+            flush=True)
+        with split_k(mesh, B):
+            print(profiled_line("phase 15a split-K decode step",
+                                lambda: serve_step(model, cfg, last, S - 1,
+                                                   cache), fd_ms),
+                  f"[{smi}]", flush=True)
+    summary["15a"] = dict(
+        slots=S, batch=B, steps=STEPS, plain_ms=round(plain_ms, 3),
+        split_k_ms=round(fd_ms, 3), bound_ms=round(bound_ms, 3),
+        weights_gb=round(w_bytes / 1e9, 3),
+        cache_gb=round(cache_bytes / 1e9, 3),
+        peak_above_resident_gb=round((peak - resident) / 1e9, 3),
+        resident_gb=round(resident / 1e9, 3), bf16_max_abs_err=err16,
+        bf16_same_ids=same16)
+    del model, cache, plain, fd
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the gate, float32 at full depth over the same slots
+    t = time.perf_counter()
+    model = init_lm(cfg, seed=3, dtype=torch.float32, device=dev)
+    cache = filled_cache(torch.float32)
+    plain, fd, _ = decode_pair(model, cfg, cache, tok, pos0, 4, mesh,
+                               reset(cache))
+    summary["15a"]["f32_max_abs_err"] = gate(
+        f"a qwen2.5-3b {cfg.n_layers} layers f32, {S} slots, 4 steps", plain,
+        fd)
+    summary["15a"]["f32_plain_ms"] = round(statistics.median(
+        ms for _, ms in plain[1:]), 3)
+    summary["15a"]["f32_split_k_ms"] = round(statistics.median(
+        ms for _, ms in fd[1:]), 3)
+    print(f"phase 15a f32 gate in {time.perf_counter() - t:.1f} s; plain "
+          f"{summary['15a']['f32_plain_ms']} ms a step, split-K "
+          f"{summary['15a']['f32_split_k_ms']} ms [{smi}]", flush=True)
+    del model, cache, plain, fd
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # (a') gemma2-27b, 2 layers, batch blocks ---------------------------------
+    gemma = get_config("gemma2-27b")
+    g2 = dataclasses.replace(gemma, n_layers=2)
+    Bg, Sp = 2, gemma.sliding_window + 4
+    max_seq = Sp + 4 + (-(Sp + 4)) % 4           # a multiple of 4 shards
+    model = init_lm(g2, seed=4, dtype=torch.float32, device=dev)
+    prompt = torch.randint(0, g2.vocab, (Bg, Sp), generator=gen.manual_seed(
+        13), device=dev)
+    with torch.no_grad():
+        last, cache = forward_prefill(model, g2, prompt, max_seq,
+                                      cache_dtype=torch.float32)
+    saved = {n: tuple(x.clone() for x in st) for n, st in cache.items()}
+
+    def restore():
+        for n, st in cache.items():
+            for dst, src in zip(st, saved[n]):
+                dst.copy_(src)
+
+    mesh2 = make_mesh((2, 4), ("data", "model"), device=dev)
+    plain, fd, _ = decode_pair(model, g2, cache,
+                               torch.argmax(last, -1).to(torch.int32), Sp,
+                               4, mesh2, restore)
+    summary["15a'"] = dict(batch=Bg, prompt=Sp, max_seq=max_seq,
+                           mesh=mesh2.shape, max_abs_err=gate(
+                               f"a' gemma2-27b full width, 2 of "
+                               f"{gemma.n_layers} layers f32, B={Bg} on a "
+                               f"(2, 4) mesh, prompt {Sp} (ring wraps)",
+                               plain, fd))
+    del model, cache, saved, plain, fd, last
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # (b) ring collectives on 4 shards of the card -------------------------
+    ring = make_mesh((4,), ("model",), device=dev)
+    hops = []
+    noted = collectives.note_collective
+
+    def note(kind, nb):
+        hops.append((kind, nb))
+        noted(kind, nb)
+
+    gb = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((4 * 2048, 2048), generator=gb, device=dev).to(
+        torch.bfloat16)
+    xm = torch.randn((8192, 2048), generator=gb, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((2048, 11008), generator=gb, device=dev).to(
+        torch.bfloat16)
+    collectives.note_collective = note
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        gathered = collectives.ring_all_gather(list(x.chunk(4)), ring)
+        gather_hops = list(hops)
+        del hops[:]
+        products = collectives.ring_matmul(list(xm.chunk(4)), w, ring)
+        matmul_hops = list(hops)
+        # warm: the first calls above also grew the allocator's pool
+        ms_g = statistics.median(event_ms(lambda: collectives.ring_all_gather(
+            list(x.chunk(4)), ring))[0] for _ in range(3))
+        ms_m = statistics.median(event_ms(lambda: collectives.ring_matmul(
+            list(xm.chunk(4)), w, ring))[0] for _ in range(3))
+    finally:
+        collectives.note_collective = noted
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    if len(gathered) != 4 or not all(torch.equal(g, x) for g in gathered):
+        fail("phase 15b: ring_all_gather differs from torch.cat")
+    want = (xm @ w).float()
+    err_m = 0.0
+    for p in products:
+        d = (p.float() - want).abs()
+        if bool((d > RING_RTOL * want.abs() + RING_ATOL).any()):
+            fail(f"phase 15b: ring_matmul beyond {RING_RTOL} x |x @ w| + "
+                 f"{RING_ATOL} (max |diff| {float(d.max()):.4g})")
+        err_m = max(err_m, float(d.max()))
+    if len(gather_hops) != 3 or len(matmul_hops) != 3:
+        fail(f"phase 15b: hops noted {gather_hops} / {matmul_hops}")
+    summary["15b"] = dict(
+        gather_hop_bytes=[nb for _, nb in gather_hops],
+        matmul_hop_bytes=[nb for _, nb in matmul_hops],
+        gather_ms=round(ms_g, 3), matmul_ms=round(ms_m, 3),
+        matmul_max_abs_err=err_m)
+    print(f"phase 15b ring_all_gather of (4 x 2048, 2048) bf16 on 4 shards "
+          f"of {dev}: every shard == torch.cat bit for bit, 3 hops of "
+          f"{gather_hops[0][1]} bytes noted ({gather_hops[0][0]}), "
+          f"{ms_g:.3f} ms warm (median of 3); ring_matmul (8192, 2048) x "
+          f"(2048, 11008) bf16: "
+          f"every shard == x @ w within {RING_RTOL} x |x @ w| + {RING_ATOL} "
+          f"(max |diff| {err_m:.4g}), 3 hops of {matmul_hops[0][1]} bytes, "
+          f"{ms_m:.3f} ms [{smi}]", flush=True)
+    del x, xm, w, want, gathered, products
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # (c) the thread-access recorder on the continuous engine ---------------
+    nq, T, _ = ds.queries.shape
+    ecfg = EngineConfig(batch_size=nq, deadline_s=30.0, token_buckets=(T,),
+                        cand_buckets=(64, MAX_CANDIDATES), max_k=K,
+                        flavor="auto", bandit_min_candidates=MAX_CANDIDATES,
+                        stage1_candidates=MAX_CANDIDATES, stage1_kprime=10,
+                        seed=SEED, continuous=True)
+    ids = [r[r >= 0] for r in cand.doc_ids.cpu().numpy()]
+
+    def requests():
+        return ([Request(query=ds.queries[i], k=K, cand_ids=ids[i])
+                 for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K, cand_ids=ids[i][:64])
+                   for i in range(nq)]
+                + [Request(query=ds.queries[i], k=K) for i in range(nq)])
+
+    def serve(recorded):
+        eng = AsyncRetrievalEngine(index.doc_embs, index.doc_mask, ecfg,
+                                   device=dev)
+        eng.warmup()
+        rec = (ThreadAccessRecorder(eng, declared=set(engine_mod.GUARDED_BY))
+               if recorded else contextlib.nullcontext())
+        reqs = requests()
+        _build.reset_launches()
+        t = time.perf_counter()
+        with rec:
+            with eng:
+                for r in reqs:
+                    eng.submit(r)
+                done = eng.drain()
+        sync()
+        secs = time.perf_counter() - t
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        got = {c.rid: c for c in done}
+        if not len(got) == len(done) == len(reqs):
+            fail(f"phase 15c: {len(done)} completions for {len(reqs)}")
+        return got, (rec if recorded else None), counts, secs
+
+    t = time.perf_counter()
+    plain_c, _, _, secs0 = serve(False)
+    got_c, rec, served, secs1 = serve(True)
+    secs_c = time.perf_counter() - t
+    bad = [rid for rid, c in plain_c.items() if not (
+        rid in got_c and np.array_equal(c.topk_ids, got_c[rid].topk_ids)
+        and np.array_equal(c.topk_scores, got_c[rid].topk_scores)
+        and c.reveal_fraction == got_c[rid].reveal_fraction)]
+    if bad or len(got_c) != len(plain_c):
+        fail(f"phase 15c: rids {bad} differ under the recorder")
+    if rec.violations():
+        fail(f"phase 15c: recorder violations {rec.violations()}")
+    if not served.get("fused_reveal"):
+        fail(f"phase 15c: launches {served}")
+    shared = sorted(rec.shared())
+    summary["15c"] = dict(requests=len(got_c), shared_attrs=len(shared),
+                          violations=0, launches=served,
+                          secs_unrecorded=round(secs0, 3),
+                          secs_recorded=round(secs1, 3))
+    print(f"phase 15c ThreadAccessRecorder on the continuous "
+          f"AsyncRetrievalEngine, phase 4's f32 corpus: {len(got_c)} "
+          f"requests, violations() == [], {len(shared)} attributes touched "
+          f"by >= 2 threads, all declared; completions == an unrecorded "
+          f"engine's bit for bit (ids, scores, reveal fractions); "
+          f"{secs1:.2f} s recorded, {secs0:.2f} s unrecorded ({secs_c:.1f} s "
+          f"with both engines' warmup); launches {served} [{smi}]",
+          flush=True)
+
+    print(f"phase 15 json {json.dumps(summary)}", flush=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return served
 
 
 def main() -> int:
@@ -3920,6 +4337,15 @@ def main() -> int:
     # 14. training ------------------------------------------------------------
     torch.cuda.empty_cache()              # phase 13's Moonlight
     training(torch.device("cuda"), profiled_line, smi, t_start)
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 15. long-context decode, ring collectives, the recorder -----------------
+    torch.cuda.empty_cache()              # phase 14's training state
+    served = long_context(torch.device("cuda"), index, ds, cand,
+                          profiled_line, smi, t_start)
+    print(f"phase 15: launches in the served runs {dict(served)}",
+          flush=True)
+    for kname, n in served.items():
+        records[kname]["launches"] += n
     print(f"elapsed {time.perf_counter() - t_start:.1f} s (end)", flush=True)
 
     order = ("fused_reveal", "maxsim", "gather_maxsim", "fused_reveal_q",

@@ -21,9 +21,10 @@ decode with ``no_drop=True``, as in JAX. ``remat=True`` recomputes the
 forward in the backward (``torch.utils.checkpoint``, non-reentrant):
 ``forward_train`` checkpoints each layer (each local/global pair for
 gemma2), ``forward_hidden`` nests the checkpoints sqrt(L)-style as JAX
-does; the values and gradients are the same bit for bit. JAX's
-``flash_decode`` branch (split-K decode over a sequence-sharded cache)
-belongs to the mesh path and is not here.
+does; the values and gradients are the same bit for bit. When
+``dist.flash_decode.enabled()``, ``forward_decode`` attends through split-K
+decode over the sequence-sharded cache (``flash_decode_attention``), as
+JAX's decode does; otherwise it is unchanged.
 
 Every entry point runs where the model's parameters live (``init_lm``
 builds them on ``device="cuda"`` unless the caller passes "cpu"); token
@@ -38,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist import flash_decode as FD
 from repro_torch.models import kv_cache as KV
 from repro_torch.models.layers import (MLP, Attention, _param, apply_rope,
                                        attention, dense_init, embed_init,
@@ -335,12 +337,27 @@ def forward_decode(params: DecoderLM, cfg: LMConfig, token,
             k_l, v_l, st.pos, k_new.to(k_l.dtype), v_new.to(v_l.dtype),
             position)
         kv_valid = pos_upd >= 0
-        attn_out = attention(
-            blk.attn, h, positions, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
-            rope_theta=cfg.rope_theta, window=window,
-            attn_softcap=cfg.attn_softcap,
-            kv_override=(k_upd, v_upd, pos_upd, kv_valid))
+        if FD.enabled():
+            # split-K attention over the sequence-sharded cache
+            q = h @ blk.attn.wq
+            if blk.attn.bq is not None:
+                q = q + blk.attn.bq
+            q = q.reshape(B, 1, cfg.n_heads, cfg.d_head)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            qg = q.reshape(B, 1, cfg.n_kv_heads,
+                           cfg.n_heads // cfg.n_kv_heads, cfg.d_head)
+            o = FD.flash_decode_attention(
+                qg, k_upd, v_upd, pos_upd, kv_valid, positions, window,
+                1.0 / float(cfg.d_head) ** 0.5, cfg.attn_softcap)
+            attn_out = (o.reshape(B, 1, cfg.n_heads * cfg.d_head)
+                        .to(x.dtype) @ blk.attn.wo)
+        else:
+            attn_out = attention(
+                blk.attn, h, positions, n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+                rope_theta=cfg.rope_theta, window=window,
+                attn_softcap=cfg.attn_softcap,
+                kv_override=(k_upd, v_upd, pos_upd, kv_valid))
         x = x + attn_out
         h2 = rms_norm(x, blk.ln2, cfg.norm_eps)
         # decode never drops a token (worst-case capacity is cheap at S=1)

@@ -1256,3 +1256,105 @@ def test_pna_train_step_card_matches_cpu(card, no_tf32):
                                atol=0)
     torch.testing.assert_close(m_d["grad_norm"].cpu(), m_c["grad_norm"],
                                rtol=1e-3, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# split-K decode and the ring collectives on the card (phase 15(a'), (b))
+# ---------------------------------------------------------------------------
+
+GEMMA_LIKE = dict(name="g", n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
+                  d_head=16, d_ff=128, vocab=256, sliding_window=8,
+                  local_global_alternating=True, attn_softcap=50.0,
+                  logit_softcap=30.0, act="gelu")
+
+
+def test_split_k_decode_on_card_matches_plain(card, no_tf32):
+    """A gemma-style decoder (ring caches, softcaps), float32, B = 2 on a
+    (2, 4) ("data", "model") mesh of the card: 4 split-K steps from a
+    prefill against the plain steps on the card (atol 1e-5) and on the
+    CPU (atol 1e-4, JAX's decode bound), the ring wrapping."""
+    from repro_torch.dist import flash_decode as FD
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models.transformer import forward_decode, \
+        forward_prefill
+    cfg, cpu, dev = _lm_twins(card, GEMMA_LIKE, seed=4)
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab, (2, 12), generator=g)
+
+    def run(model, device, mesh, toks=None):
+        """4 decode steps from the prefill, greedy or fed ``toks``."""
+        out, fed = [], []
+        with torch.no_grad():
+            last, cache = forward_prefill(model, cfg, prompt.to(device), 16,
+                                          cache_dtype=torch.float32)
+            tok = torch.argmax(last, -1)
+            if mesh is not None:
+                FD.configure(mesh, "data", "model")
+            try:
+                for step in range(4):
+                    if toks is not None:
+                        tok = toks[step].to(device)
+                    fed.append(tok.cpu())
+                    logits, cache = forward_decode(model, cfg, tok,
+                                                   12 + step, cache)
+                    out.append(logits.cpu())
+                    tok = torch.argmax(logits, -1)
+            finally:
+                FD.configure(None, None, None)
+        return out, fed
+
+    ref, toks = run(cpu, "cpu", None)
+    plain, _ = run(dev, card, None, toks)
+    split, _ = run(dev, card, make_mesh((2, 4), ("data", "model"),
+                                       device=card), toks)
+    for r, p, s in zip(ref, plain, split):
+        assert torch.isfinite(s).all()
+        torch.testing.assert_close(s, p, rtol=0, atol=1e-5)
+        torch.testing.assert_close(s, r, rtol=0, atol=1e-4)
+
+
+def test_split_k_attention_on_card_matches_cpu(card):
+    """flash_decode_attention over 8 sequence shards of the card against
+    the CPU's (float32, an all-masked shard; atol 1e-5)."""
+    from repro_torch.dist import flash_decode as FD
+    from repro_torch.dist.mesh import make_mesh
+    g = torch.Generator().manual_seed(6)
+    qg = torch.randn((2, 1, 2, 3, 8), generator=g)
+    k = torch.randn((2, 64, 2, 8), generator=g)
+    v = torch.randn((2, 64, 2, 8), generator=g)
+    kv_pos = torch.arange(64, dtype=torch.int32).expand(2, 64).clone()
+    kv_pos[:, 50:] = -1
+    q_pos = torch.full((2, 1), 49, dtype=torch.int32)
+    args = (qg, k, v, kv_pos, kv_pos >= 0, q_pos)
+    out = {}
+    for device in ("cpu", card):
+        FD.configure(make_mesh((8,), ("model",), device=device), None,
+                     "model")
+        try:
+            out[str(device)] = FD.flash_decode_attention(
+                *[a.to(device) for a in args], 16, 8 ** -0.5, 50.0).cpu()
+        finally:
+            FD.configure(None, None, None)
+    torch.testing.assert_close(out[str(card)], out["cpu"], rtol=0,
+                               atol=1e-5)
+
+
+def test_ring_collectives_on_card(card, no_tf32):
+    """4 shards of the card: ring_all_gather == torch.cat bit for bit on
+    every shard, each result a fresh copy; ring_matmul in float32 ==
+    x @ w within rtol 1e-5 (another row blocking may sum in another
+    order); 3 hops noted, each carrying every shard's chunk."""
+    from repro_torch.analysis.audit import Recorder
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.mesh import make_mesh
+    mesh = make_mesh((4,), ("model",), device=card)
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((4 * 256, 128), generator=g, device=card)
+    w = torch.randn((128, 384), generator=g, device=card)
+    with Recorder() as rec:
+        got = C.ring_all_gather(list(x.chunk(4)), mesh)
+    assert rec.collective == {"collective-permute": 3 * x.numel() * 4}
+    for s in got:
+        assert torch.equal(s, x) and s.data_ptr() != x.data_ptr()
+    for s in C.ring_matmul(list(x.chunk(4)), w, mesh):
+        torch.testing.assert_close(s, x @ w, rtol=1e-5, atol=1e-5)

@@ -18,9 +18,10 @@ import time
 import numpy as np
 import pytest
 
-from repro.analysis import locks
-from repro.analysis.recorder import ThreadAccessRecorder
+from repro.analysis import locks as jlocks
 from repro.dist import fault as jfault
+from repro_torch.analysis import locks
+from repro_torch.analysis.recorder import ThreadAccessRecorder
 from repro_torch.dist.fault import (ChaosClock, ChaosKill, DeadlineBatcher,
                                     FaultPlan, InjectedFault, apply_delay,
                                     poison_corpus)
@@ -477,9 +478,14 @@ def test_engine_guarded_by_tables_pass_the_lockset_lint():
     assert locks.check_file(engine_mod.__file__) == []
 
 
+def test_engine_guarded_by_tables_pass_the_jax_lockset_lint():
+    """The JAX package's own lockset pass on the port's engine agrees."""
+    assert jlocks.check_file(engine_mod.__file__) == []
+
+
 def test_recorder_sanitized_soak_no_undeclared_shared_state():
-    """The JAX package's runtime thread-access sanitizer on the port's
-    engine: a supervised run through a thread kill touches no cross-thread
+    """The port's run-time thread-access sanitizer on its engine: a
+    supervised run through a thread kill touches no cross-thread
     attribute outside GUARDED_BY."""
     rng, embs, mask, qs = _soak_inputs(3)
     plan = FaultPlan([InjectedFault(point="dispatch", at=3, action="kill")])

@@ -284,3 +284,49 @@ def test_evaluate_dataset_matches_jax(monkeypatch, method):
                                   qrels_row=ds.qrels[0], draws=REPLAY,
                                   **HARNESS)
     assert one["coverage"] == first.coverage
+
+
+# ---------------------------------------------------------------------------
+# examples/torch_calibration_sweep.py
+# ---------------------------------------------------------------------------
+
+def _example(name):
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_calibration_sweep_matches_jax(monkeypatch, capsys):
+    """The example's alpha_ef sweep against ``benchmarks.common``'s
+    ``frontier_bandit`` (what ``examples/calibration_sweep.py`` prints), on
+    a small dataset, and its table at ``--device cpu``."""
+    from benchmarks.common import bench_dataset as j_bench_dataset
+    from benchmarks.common import frontier_bandit as j_frontier_bandit
+    monkeypatch.setenv("REPRO_KERNEL_IMPL", "ref")
+    ex = _example("torch_calibration_sweep")
+    ds = _dataset(7)
+    alphas = (0.1, 0.8)
+    want = j_frontier_bandit(ds, k=5, alphas=alphas)
+    got = ex.frontier_bandit(ds, k=5, alphas=alphas, device="cpu",
+                             draws=REPLAY)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for name in w:
+            np.testing.assert_allclose(g[name], w[name], rtol=RTOL,
+                                       atol=1e-7, err_msg=name)
+    small = ex.bench_dataset(48, 2)
+    ref = j_bench_dataset(48, 2)
+    np.testing.assert_array_equal(small.doc_embs, ref.doc_embs)
+    np.testing.assert_array_equal(small.queries, ref.queries)
+    pts = ex.main(["--device", "cpu", "--n-docs", "48", "--n-queries", "2",
+                   "--alphas", "0.2", "1.6"])
+    out = capsys.readouterr().out
+    assert out.startswith("alpha_ef   coverage   overlap@5   flops_saving")
+    assert [p["alpha_ef"] for p in pts] == [0.2, 1.6]
+    assert all(0 < p["coverage"] <= 1 for p in pts)
