@@ -97,7 +97,15 @@ Phases, in order:
      share, peak; the gate in float32), gemma2-27b's first layer pair on a
      (2, 4) mesh with batch blocks, the ring collectives on 4 shards, and
      the thread-access recorder on the continuous engine (see
-     ``long_context``).
+     ``long_context``);
+ 16. the launcher's account: one cell per family on the (16, 16)
+     production mesh at full depth, accounted on the host (exact placement
+     bytes, FLOPs and bytes counted on ``meta``, reckoned collectives, the
+     H100's roofline seconds), and three cells on a one-card mesh held to
+     the card: argument bytes == the arguments' ``nbytes``, counted FLOPs
+     == ``FlopCounterMode`` over the card's run, the dense ``maxsim``
+     kernel launched as the account expects, step ms beside the account's
+     bound (see ``launcher_account``).
 
 The last two lines of standard output are the device line and
 ``{"ok": true, "device": {...}}``; the line before them lists every kernel as
@@ -3036,6 +3044,279 @@ def long_context(dev, index, ds, cand, profiled_line, smi, t_start,
     return served
 
 
+
+def launcher_account(dev, smi, t_start):
+    """16. The launcher's per-device account (``repro_torch.launch``), on the
+    host and held against the card.
+
+    (a) The account (``launch/dryrun.py::run_cell``: exact placement bytes,
+        FLOPs and bytes counted over the port's step on ``meta``, reckoned
+        collectives, the H100's roofline seconds) of one cell per family on
+        the (16, 16) production mesh at full depth, on this machine's host:
+        ``qwen2.5-3b`` / ``moonshot-v1-16b-a3b`` ``decode_32k``, ``pna
+        ogb_products``, ``fm serve_bulk`` and ``colbert-text rerank_bulk``;
+        each record printed whole.
+    (b) Three cells on a one-card mesh (``make_host_mesh(1)``), their
+        arguments drawn (seeded) on the card at the cell's shapes:
+        ``qwen2.5-3b decode_32k`` at ``depth=2`` with its full B = 128 and
+        32,768-slot bf16 cache; ``colbert-text rerank_online`` (B = 256, N
+        = 256, 1,024 candidate slots) over phase 4's 65,536-doc count in
+        bf16 (``corpus_docs``); ``pna molecule`` at full size, a train
+        step. Each must hold (i) the account's argument bytes == the summed
+        ``nbytes`` of the arguments on the card, (ii) for the LM and PNA
+        cells the counted ``meta`` FLOPs == ``FlopCounterMode`` over the
+        card's run of the same step, (iii) for the retrieval cell
+        ``colbandit_maxsim`` launched (wrapper counts, as phase 10a counts
+        them) as often as the account expects, and the step's top-10
+        scores and ids equal a plain rerank of the same tensors (the
+        candidates gathered, ``maxsim_batch_plain`` over chunks of 16
+        queries, the masked sum, ``stable_topk``): scores within RTOL /
+        ATOL, ids wherever the neighbouring scores are further apart than
+        that, and the kernel's (B, 1,024, T) result at the step's launch
+        shape (pad slots included) within RTOL / ATOL of the plain one
+        (check launches, made after the counts are read); reported: (iv)
+        the step's
+        CUDA-event median ms beside the account's max(compute_s, memory_s)
+        and their ratio, (v) ``max_memory_allocated`` above the arguments
+        beside the account's eager live peak.
+
+    Prints one ``phase 16 json`` line; returns the kernel launches of
+    (b)'s runs of the retrieval step."""
+    import collections
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.accounting import placed_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core.bandit import stable_topk
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.maxsim import maxsim_batch_plain
+    from repro_torch.kernels.ops import maxsim_batch_op
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as launch_steps
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models.gnn import GraphBatch, init_pna
+    from repro_torch.models.transformer import init_cache, init_lm
+    from repro_torch.retrieval.service import gather_candidates
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+    from repro_torch.train.train_step import init_train_state
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    summary = {"16a": {}, "16b": {}}
+    served = collections.Counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) the account on the host ------------------------------------------
+    prod = make_production_mesh()
+    for arch, shape in (("qwen2.5-3b", "decode_32k"),
+                        ("moonshot-v1-16b-a3b", "decode_32k"),
+                        ("pna", "ogb_products"), ("fm", "serve_bulk"),
+                        ("colbert-text", "rerank_bulk")):
+        rec = dryrun.run_cell(arch, shape, prod, verbose=False)
+        r = rec["reckoned"]
+        summary["16a"][f"{arch} {shape}"] = dict(
+            account_s=round(rec["account_s"], 3),
+            bottleneck=rec["bottleneck"], compute_s=r["compute_s"],
+            memory_s=r["memory_s"], collective_s=r["collective_s"],
+            useful_flops_frac=r["useful_flops_frac"])
+        print(f"phase 16a record {json.dumps(rec)}", flush=True)
+    print(f"phase 16a: 5 cells accounted on the (16, 16) mesh at full depth "
+          f"in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (b) the account held against the card ---------------------------------
+    mesh = make_host_mesh(1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randint(hi, shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def step_ms(fn, reps=5):
+        if not on_card:
+            t = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t) * 1e3
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def held(arch, shape, overrides, make_args, kernel=None, check=None):
+        rec = dryrun.run_cell(arch, shape, mesh, verbose=False, **overrides)
+        cell = launch_steps.build_cell(arch, shape, mesh, **overrides)
+        real = make_args(cell)
+        want = placed_leaves(cell.args, cell.in_specs)
+        got = placed_leaves(real, cell.in_specs)
+        bad = [(p, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype)
+               for (p, a, _), (_, b, _) in zip(want, got)
+               if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype]
+        if len(want) != len(got) or bad:
+            fail(f"phase 16b {arch} {shape}: arguments differ from the "
+                 f"cell's: {bad[:3]}")
+        nbytes = sum(t.numel() * t.element_size() for _, t, _ in got)
+        acct = rec["exact"]["argument_bytes_per_device"]
+        if nbytes != acct:
+            fail(f"phase 16b {arch} {shape} (i): {nbytes} argument bytes on "
+                 f"the card, the account says {acct}")
+        sync()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with FlopCounterMode(display=False) as fc:
+            out = cell.fn(*real)
+        sync()
+        once = {k: v for k, v in _build.LAUNCHES.items() if v}
+        peak = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+        card_flops = int(fc.get_total_flops())
+        counted = (rec["counted"] or {}).get("counted_flops")
+        if counted is not None and card_flops != counted:
+            fail(f"phase 16b {arch} {shape} (ii): FlopCounterMode on the "
+                 f"card {card_flops}, counted on meta {counted}")
+        if kernel:
+            work = rec["reckoned"]["kernel_work"]
+            expect = work["kernel_launches_per_device"][kernel] * mesh.size
+            if once.get(kernel, 0) != expect:
+                fail(f"phase 16b {arch} {shape} (iii): launches {once}, the "
+                     f"account expects {expect} {kernel}")
+        ms = step_ms(lambda: cell.fn(*real))
+        sync()
+        if kernel:
+            served.update({k: v for k, v in _build.LAUNCHES.items() if v})
+        plain = check(real, out) if check else None
+        r = rec["reckoned"]
+        bound = max(r["compute_s"], r["memory_s"]) * 1e3
+        live = (rec["counted"] or {}).get("eager_live_peak_bytes_per_device")
+        summary["16b"][f"{arch} {shape}"] = dict(
+            argument_bytes=nbytes, card_flops=card_flops,
+            counted_flops=counted, launches=once, plain=plain,
+            ms=round(ms, 4), account_ms=round(bound, 4),
+            ratio=round(ms / bound, 3) if bound else None,
+            peak_above_args=peak, eager_live_peak=live)
+        print(f"phase 16b {arch} {shape} {overrides}: (i) argument bytes "
+              f"{nbytes} == the account's; (ii) FLOPs card {card_flops} / "
+              f"meta {counted}; (iii) launches {once}, against the plain "
+              f"version {plain}; (iv) {ms:.3f} ms a "
+              f"step (median of 5, CUDA events) vs the account's "
+              f"max(compute, memory) {bound:.3f} ms (memory_s an unfused "
+              f"upper bound): ratio "
+              f"{(ms / bound if bound else float('nan')):.2f}; (v) peak "
+              f"{peak / 1e9:.3f} GB above the arguments, eager live peak "
+              f"{(live or 0) / 1e9:.3f} GB [{smi}]", flush=True)
+        del real, out
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def rerank_plain(real, out, chunk=16):
+        """The step's (scores, ids) against a plain rerank of ``real`` on
+        the one shard, and the kernel's H at the step's launch shape
+        against ``maxsim_batch_plain``; fails on a mismatch."""
+        embs, mask, q, cand = real
+        c = cand[:, 0].to(torch.int64)
+        docs, dmask = gather_candidates(embs, mask, c)
+        h = maxsim_batch_op(docs, dmask, q)
+        h_plain = torch.cat([
+            maxsim_batch_plain(docs[i:i + chunk], dmask[i:i + chunk],
+                               q[i:i + chunk])
+            for i in range(0, c.shape[0], chunk)])
+        del docs
+        err_h = check_close("phase 16b maxsim at the cell's shape", h,
+                            h_plain)
+        sc = torch.where(dmask.any(dim=2)[:, :, None], h_plain,
+                         0.0).sum(dim=-1)
+        sc = torch.where(c >= 0, sc, -3e38)
+        k = out[0].shape[1]
+        best, pos = stable_topk(sc, k + 1)
+        ids = torch.where(best > -1.5e38, torch.gather(c, 1, pos), -1)
+        err_s = check_close("phase 16b top-K scores", out[0], best[:, :k])
+        tol = ATOL + RTOL * best.abs()
+        gap = best[:, :-1] - best[:, 1:]            # to the next one down
+        up = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                        gap[:, :-1]], dim=1)        # to the next one up
+        decided = (gap > tol[:, :k]) & (up > tol[:, :k])
+        wrong = decided & (out[1].to(torch.int64) != ids[:, :k])
+        if bool(wrong.any()):
+            b, j = (int(v) for v in wrong.nonzero()[0])
+            fail(f"phase 16b rerank: query {b} rank {j} id "
+                 f"{int(out[1][b, j])}, the plain rerank's "
+                 f"{int(ids[b, j])} (scores {best[b, :k].tolist()})")
+        return dict(maxsim_max_abs_err=err_h, score_max_abs_err=err_s,
+                    ids_decided=int(decided.sum()), ids=decided.numel())
+
+    def lm_args(cell):
+        params, tok, _, cache = cell.args
+        model = init_lm(params.cfg, seed=SEED, dtype=torch.bfloat16,
+                        device=dev)
+        B, S = tok.shape[0], next(iter(cache.values())).pos.shape[1]
+        real_cache = init_cache(params.cfg, B, S, torch.bfloat16, dev)
+        for st in real_cache.values():
+            for t in (st.k, st.v):
+                for i in range(t.shape[0]):
+                    t[i].normal_(generator=gen)
+            st.pos.copy_(torch.arange(st.pos.shape[1], dtype=torch.int32,
+                                      device=dev).expand_as(st.pos))
+        return (model, randint(params.cfg.vocab, (B,)),
+                torch.tensor(S - 1, dtype=torch.int32, device=dev),
+                real_cache)
+
+    def rerank_args(cell):
+        embs, mask, queries, cand = cell.args
+        C, L, M = embs.shape
+        e = torch.empty((C, L, M), dtype=torch.bfloat16, device=dev)
+        for i in range(0, C, 8192):         # unit rows, as served tokens
+            x = torch.randn((min(8192, C - i), L, M), generator=gen,
+                            device=dev)
+            e[i:i + 8192] = x / x.norm(dim=-1, keepdim=True)
+        lens = randint(L - L // 4, (C,)) + L // 4
+        m = torch.arange(L, device=dev)[None, :] < lens[:, None]
+        q = torch.randn(tuple(queries.shape), generator=gen, device=dev)
+        q = (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+        c = randint(C, tuple(cand.shape))
+        n = next(s for s in get_config("colbert-text").shapes
+                 if s.name == "rerank_online").n_candidates
+        c[..., n:] = -1                  # the routing headroom's pad slots
+        return (e, m, q, c)
+
+    def pna_args(cell):
+        _, batch = cell.args
+        n, d_feat = batch.feats.shape
+        e = batch.senders.shape[0]
+        cfg = get_config("pna")
+        params = init_pna(cfg, d_feat, seed=SEED, device=dev)
+        state = init_train_state(params,
+                                 adamw(cosine_schedule(1e-3, 100, 10_000)))
+        shape = next(s for s in cfg.shapes if s.name == "molecule")
+        real_edges = shape.graph_batch * shape.n_edges
+        return state, GraphBatch(
+            feats=torch.randn((n, d_feat), generator=gen, device=dev),
+            senders=randint(n, (e,)), receivers=randint(n, (e,)),
+            edge_mask=torch.arange(e, device=dev) < real_edges,
+            node_mask=torch.ones(n, dtype=torch.bool, device=dev),
+            labels=randint(cfg.n_classes, (n,)))
+
+    held("qwen2.5-3b", "decode_32k", {"depth": 2}, lm_args)
+    held("colbert-text", "rerank_online",
+         {"corpus_docs": CORPUS["n_docs"]}, rerank_args, kernel="maxsim",
+         check=rerank_plain)
+    held("pna", "molecule", {}, pna_args)
+    if not served.get("maxsim"):
+        fail(f"phase 16b: maxsim never launched ({dict(served)})")
+    print(f"phase 16 json {json.dumps(summary)}", flush=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s; elapsed "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -4343,6 +4624,14 @@ def main() -> int:
     served = long_context(torch.device("cuda"), index, ds, cand,
                           profiled_line, smi, t_start)
     print(f"phase 15: launches in the served runs {dict(served)}",
+          flush=True)
+    for kname, n in served.items():
+        records[kname]["launches"] += n
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 16. the launcher's account, on the host and against the card ----------
+    torch.cuda.empty_cache()              # phase 15's long-context cache
+    served = launcher_account(torch.device("cuda"), smi, t_start)
+    print(f"phase 16: launches in the served runs {dict(served)}",
           flush=True)
     for kname, n in served.items():
         records[kname]["launches"] += n

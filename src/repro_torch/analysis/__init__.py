@@ -9,7 +9,11 @@
   --max-suppressions 0``;
 * :mod:`~repro_torch.analysis.locks`: the thread-lockset pass over classes
   that declare ``THREAD_ENTRY_POINTS`` / ``GUARDED_BY`` (the serving
-  engine), and :mod:`~repro_torch.analysis.recorder`, its run-time twin.
+  engine), and :mod:`~repro_torch.analysis.recorder`, its run-time twin;
+* :mod:`~repro_torch.analysis.accounting`: the launcher's per-device
+  account of a step (exact placement bytes, FLOPs and bytes counted over
+  a run on ``meta``, collectives reckoned from the specs): the accounting
+  half of ``hlo_audit``.
 
 ``lint``, ``locks`` and ``recorder`` read source text or instrument an
 object; none imports the code it checks.

@@ -1,9 +1,11 @@
 """Config registry: ``get_config(<arch id>)`` -> config object: the
 paper's retrieval configs, the LM backbones (dense and MoE), the GNN and
-the recsys models (the JAX package's ``repro.configs`` registry)."""
+the recsys models (the JAX package's ``repro.configs`` registry).
+``ASSIGNED_ARCHS`` is the assigned pool of ten archs and ``all_cells``
+walks its (arch x shape) cells, as the launcher does."""
 from repro_torch.configs.autoint import CONFIG as AUTOINT
 from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
-                                      BanditConfig, GNNConfig, LMConfig,
+                                      RETRIEVAL_SHAPES, BanditConfig, GNNConfig, LMConfig,
                                       RecsysConfig, RetrievalConfig,
                                       ShapeSpec, criteo_like_vocab)
 from repro_torch.configs.colbert_repro import MM_CONFIG, TEXT_CONFIG
@@ -35,16 +37,32 @@ REGISTRY = {
 }
 
 
+ASSIGNED_ARCHS = [
+    "mixtral-8x22b", "moonshot-v1-16b-a3b", "internlm2-20b", "gemma2-27b",
+    "qwen2.5-3b", "pna", "autoint", "sasrec", "din", "fm",
+]
+
+
 def get_config(arch: str):
     if arch not in REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[arch]
 
 
+def all_cells(archs=None):
+    """Enumerate every (arch, config, shape) cell of ``archs`` (default:
+    the assigned pool)."""
+    archs = archs or ASSIGNED_ARCHS
+    for arch in archs:
+        cfg = get_config(arch)
+        for shape in cfg.shapes:
+            yield arch, cfg, shape
+
+
 __all__ = ["BanditConfig", "RetrievalConfig", "ShapeSpec", "TEXT_CONFIG",
            "MM_CONFIG", "LMConfig", "LM_SHAPES", "QWEN2_5_3B",
            "INTERNLM2_20B", "GEMMA2_27B", "MIXTRAL_8X22B",
            "MOONSHOT_V1_16B_A3B", "GNNConfig", "GNN_SHAPES", "PNA",
-           "RecsysConfig", "RECSYS_SHAPES",
+           "RecsysConfig", "RECSYS_SHAPES", "RETRIEVAL_SHAPES",
            "criteo_like_vocab", "FM", "AUTOINT", "DIN", "SASREC",
-           "REGISTRY", "get_config"]
+           "REGISTRY", "ASSIGNED_ARCHS", "get_config", "all_cells"]

@@ -11,6 +11,9 @@ counterpart). Module map:
                 copy a hop.
   flash_decode  split-K decode attention over the sequence-sharded KV
                 cache, bound with ``configure()``.
+  act_sharding  JAX's activation-constraint fit as a pure function,
+                ``fitted_spec`` (eager PyTorch has no partitioner to
+                hint, so there is no ``constrain``).
   fault         the training failure guard, the deadline batcher, the
                 chaos harness and ``reshard``.
 """

@@ -11,8 +11,9 @@ The counterpart of ``src/repro/models/transformer.py``, driven by
 
 JAX stacks the layers and runs them with ``lax.scan``; here a
 ``DecoderLM`` holds them in a ``ModuleList`` in execution order and Python
-loops over them (``models/scan_util.py`` exists only for XLA's cost
-analysis). gemma2 keeps JAX's pairing: blocks 2i and 2i + 1 are pair i's
+loops over them. JAX's ``models/scan_util.py`` (the scan's unroll flag, so
+that XLA's cost analysis sees every layer) has no counterpart: an eager
+loop is counted once per trip. gemma2 keeps JAX's pairing: blocks 2i and 2i + 1 are pair i's
 local and global layer, whose K/V live in the "local" (ring, size window)
 and "global" (full) cache stacks at index i. A MoE block (``cfg.moe``)
 holds ``moe`` in place of ``mlp``: the train, hidden and prefill forwards

@@ -30,6 +30,9 @@ from repro_torch.kernels.quant import dequantize
 from repro_torch.retrieval import service
 from repro_torch.retrieval.index import build_index_from_ragged
 from repro_torch.serve import EngineConfig, RetrievalEngine
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LOOP = "core/frontier.py::run_loop"

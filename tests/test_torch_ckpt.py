@@ -41,6 +41,9 @@ from repro_torch.train.optimizer import adamw, cosine_schedule
 from repro_torch.train.train_step import init_train_state, \
     make_lm_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SPEC = dict(name="tiny", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
             d_head=16, d_ff=64, vocab=128)

@@ -37,6 +37,9 @@ from repro_torch.models.transformer import init_lm
 from repro_torch.retrieval.index import from_numpy
 from repro_torch.retrieval.pipeline import serve_queries
 from test_torch_core import JaxReplayDraws
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL, GAP = 1e-5, 1e-4
 BACKBONES = {

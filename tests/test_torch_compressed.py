@@ -28,6 +28,9 @@ from repro_torch.retrieval.index import from_numpy
 from repro_torch.retrieval.pipeline import candidates_for, serve_queries
 from repro_torch.retrieval.service import make_serving_step
 from test_torch_core import JaxReplayDraws, key_data
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 K = 5
 STAGE1 = dict(kprime=10, max_candidates=32)

@@ -37,6 +37,9 @@ from repro_torch.train.compressed_step import (init_compressed_state,
 from repro_torch.train.optimizer import adamw
 from repro_torch.train.train_step import init_train_state, \
     make_lm_train_step, named_params
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 S = 4
 SPEC = dict(name="t", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,

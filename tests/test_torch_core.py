@@ -25,6 +25,9 @@ from repro_torch.core.batched import _apply_block_reveal, _round_select
 from repro_torch.core.frontier import run_pooled_oracle
 from repro_torch.core.state import BanditState
 from repro_torch.data import synthetic as tsynthetic
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def key_data(keys) -> torch.Tensor:

@@ -19,6 +19,9 @@ from repro_torch.dist.mesh import make_mesh
 from repro_torch.retrieval import corpus as tc
 from repro_torch.retrieval.index import from_numpy
 from repro_torch.retrieval.service import gather_candidates
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 

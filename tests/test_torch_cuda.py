@@ -52,6 +52,9 @@ from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig,
                                FaultPlan, InjectedFault, Request,
                                RetrievalEngine, pad_candidates,
                                support_bounds)
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.cuda
 RTOL, ATOL = 1e-5, 1e-6
@@ -1358,3 +1361,50 @@ def test_ring_collectives_on_card(card, no_tf32):
         assert torch.equal(s, x) and s.data_ptr() != x.data_ptr()
     for s in C.ring_matmul(list(x.chunk(4)), w, mesh):
         torch.testing.assert_close(s, x @ w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_launcher_count_on_meta_equals_the_card(card, no_tf32, kind):
+    """The launcher's account counts FLOPs over the step on ``meta``; the
+    same step on the card, on drawn arguments of the cell's shapes, counts
+    the same under ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.accounting import count_step
+    from repro_torch.configs.base import LMConfig, ShapeSpec
+    from repro_torch.launch import steps as launch_steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import init_cache, init_lm
+    from repro_torch.train.optimizer import adamw, cosine_schedule
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = LMConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, d_head=16, d_ff=96, vocab=512,
+                   qkv_bias=True)
+    B, S = 4, 64
+    mesh = make_host_mesh(1, device=card)
+    cell = launch_steps._lm_cell(
+        cfg, ShapeSpec(name=kind, kind=kind, seq_len=S, global_batch=B), mesh)
+    _, count = count_step(cell.count)
+    gen = torch.Generator(device=card).manual_seed(3)
+    model = init_lm(cfg, seed=0, dtype=torch.bfloat16, device=card)
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen,
+                             device=card, dtype=torch.int32)
+
+    if kind == "prefill":
+        args = (model, ids(B, S))
+    elif kind == "decode":
+        args = (model, ids(B), torch.tensor(S - 1, dtype=torch.int32,
+                                            device=card),
+                init_cache(cfg, B, S, torch.bfloat16, card))
+    else:
+        state = init_train_state(model, adamw(cosine_schedule(3e-4, 100,
+                                                              10_000)))
+        args = (state, {"tokens": ids(B, S), "targets": ids(B, S)})
+    with FlopCounterMode(display=False) as fc:
+        cell.fn(*args)
+    torch.cuda.synchronize()
+    assert count.flops > 0
+    assert int(fc.get_total_flops()) == count.flops

@@ -43,6 +43,9 @@ from repro_torch.models import recsys as R
 from repro_torch.models.gnn import PNA
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.train.compressed_step import jax_leaf_groups
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.timeout(300)
 

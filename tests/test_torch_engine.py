@@ -29,6 +29,9 @@ from repro_torch.dist.fault import ChaosClock
 from repro_torch.kernels.maxsim import maxsim_plain
 from repro_torch.serve import EngineConfig, Request, RetrievalEngine
 from test_torch_core import JaxReplayDraws
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 REPLAY = JaxReplayDraws()

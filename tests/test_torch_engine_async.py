@@ -32,6 +32,9 @@ from repro.serve import RetrievalEngine as JRetrievalEngine
 from repro_torch.serve import (AdmissionRejected, AsyncRetrievalEngine,
                                EngineConfig, Request, RetrievalEngine)
 from test_torch_core import JaxReplayDraws
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.timeout(300)
 RTOL, ATOL = 1e-5, 1e-6

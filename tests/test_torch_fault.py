@@ -29,6 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig, Request,
                                Supervisor)
 from repro_torch.serve import engine as engine_mod
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.timeout(300)
 

@@ -43,6 +43,9 @@ from repro_torch.models.convert import lm_from_jax
 from repro_torch.models.layers import apply_rope, attention, rms_norm
 from test_torch_lm import FLAVORS as DENSE
 from test_torch_moe import MOE
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.timeout(300)
 

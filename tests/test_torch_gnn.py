@@ -35,6 +35,9 @@ from repro_torch.dist.mesh import make_mesh
 from repro_torch.models import gnn as G
 from repro_torch.models.convert import gnn_from_jax
 from repro_torch.train.train_step import value_and_grad
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 SPEC = dict(name="pna", n_layers=3, d_hidden=16, n_classes=5)
 RTOL, ATOL, GRAD_REL = 1e-4, 5e-4, 1e-3

@@ -37,6 +37,9 @@ from repro_torch.core.draws import TorchDraws
 from repro_torch.retrieval import pipeline
 from repro_torch.retrieval.index import from_numpy
 from test_torch_core import JaxReplayDraws, key_data
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 REPLAY = JaxReplayDraws()
 RTOL = 1e-5

@@ -12,6 +12,9 @@ import pytest
 
 from repro.analysis import lint
 from repro_torch.analysis import lint as port_lint
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")

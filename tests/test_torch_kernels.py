@@ -20,6 +20,9 @@ from repro_torch.kernels.maxsim import maxsim_batch_cuda, \
     maxsim_batch_plain, maxsim_plain
 from repro_torch.kernels.reveal import fused_reveal_cuda, \
     fused_reveal_plain, reveal_stats
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 

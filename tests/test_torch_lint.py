@@ -25,6 +25,9 @@ import pytest
 from repro.analysis import locks as jlocks
 from repro_torch.analysis import audit, lint, locks
 from repro_torch.analysis.recorder import ThreadAccessRecorder
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.timeout(300)
 

@@ -46,6 +46,9 @@ from repro_torch.models.transformer import (forward_decode, forward_hidden,
                                             forward_prefill, forward_train,
                                             init_cache, init_lm)
 from repro_torch.serve import generate, serve_step
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LAYER_ATOL, FWD_ATOL, GAP = 1e-5, 1e-4, 1e-3
 

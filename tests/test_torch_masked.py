@@ -21,6 +21,9 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import quant as tq
 from repro_torch.kernels.masked_maxsim import masked_maxsim_cuda, \
     masked_maxsim_q_cuda
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 NEG = float(np.float32(-3e38))

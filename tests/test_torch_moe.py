@@ -60,6 +60,9 @@ from repro_torch.models.transformer import (DecoderLM, forward_decode,
 from repro_torch.serve import generate, serve_step
 from test_torch_colbert import L as DOC_L
 from test_torch_colbert import _jax_serve, _port_serve, _tokens
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LAYER_ATOL, FWD_ATOL, GAP, W_ATOL, TIE = 1e-5, 1e-4, 1e-3, 1e-6, 1e-4
 D, F_FF = 64, 96

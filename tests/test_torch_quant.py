@@ -25,6 +25,9 @@ from repro_torch.kernels.maxsim import maxsim_batch_plain, \
     maxsim_batch_q_cuda, maxsim_plain
 from repro_torch.kernels.reveal import fused_reveal_plain, \
     fused_reveal_q_cuda, reveal_stats
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 FORMATS = ("int8", "residual")

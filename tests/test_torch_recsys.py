@@ -41,6 +41,9 @@ from repro_torch.core.baselines import exact_topk
 from repro_torch.models import recsys as R
 from repro_torch.models.convert import recsys_from_jax
 from test_torch_core import JaxReplayDraws, key_data
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL = 1e-5
 VOCAB = (50, 30, 70, 4097)       # the last field past one pad block

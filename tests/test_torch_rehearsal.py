@@ -15,6 +15,9 @@ import subprocess
 from pathlib import Path
 
 import pytest
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -39,6 +39,9 @@ from repro_torch.retrieval.service import init_stream_state, \
 from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig,
                                RetrievalEngine)
 from test_torch_core import JaxReplayDraws, key_data
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -48,6 +48,9 @@ from repro_torch.serve import (AsyncRetrievalEngine, EngineConfig, Request,
                                RetrievalEngine)
 from test_torch_core import JaxReplayDraws
 from test_torch_sharded import _np_merge
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.timeout(300)
 RTOL, ATOL = 1e-5, 1e-6

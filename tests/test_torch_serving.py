@@ -35,6 +35,9 @@ from repro_torch.retrieval.corpus import build_corpus
 from repro_torch.serve import bucketing
 from repro_torch.serve.resilience import DegradeLadder
 from test_torch_core import JaxReplayDraws, key_data
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 K = 5
 REPLAY = JaxReplayDraws()

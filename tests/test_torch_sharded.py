@@ -45,6 +45,9 @@ from repro_torch.retrieval.corpus import build_corpus
 from repro_torch.retrieval.sharded import (route_aligned, route_batch,
                                            route_candidates, shard_corpus)
 from test_torch_core import JaxReplayDraws
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-5, 1e-6
 NEG = np.float32(-3e38)

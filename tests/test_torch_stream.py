@@ -29,6 +29,9 @@ from repro_torch.core.draws import TorchDraws
 from repro_torch.core.frontier import (_REV_THRESH, init_frontier_state,
                                        run_pooled_bandit, run_pooled_slice)
 from test_torch_core import JaxReplayDraws, key_data
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 Q, N, T = 4, 40, 16
 CFG_KW = dict(k=5, alpha_ef=0.3, block_docs=8, block_tokens=4)

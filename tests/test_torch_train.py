@@ -52,6 +52,9 @@ from repro_torch.train import train_step as T
 from test_torch_lm import FLAVORS, _random_bias
 from test_torch_moe import MOE, _by_layer, _recording
 from test_torch_recsys import SMALL, VOCAB, _field_ids, _history
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LOSS_ATOL, GRAD_ATOL, PARAM_ATOL = 1e-5, 1e-5, 1e-5     # lr 1e-3
 EPS = 1e-4                          # AdamW's eps in the step tests

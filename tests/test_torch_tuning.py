@@ -32,6 +32,9 @@ from repro_torch.kernels import ops, tuning
 from repro_torch.kernels.quant import quantize_int8
 from repro_torch.serve import EngineConfig, Request, RetrievalEngine
 from repro_torch.serve import engine as engine_mod
+from test_torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 DIMS = [dict(N=5, T=32, L=128, M=128),
         dict(B=16, N=64, T=32, L=128, M=128),
