@@ -2676,6 +2676,8 @@ def long_context(dev, index, ds, cand, profiled_line, smi, t_start,
         ``AsyncRetrievalEngine`` in continuous mode serving 48 requests on
         phase 4's f32 corpus (phase 9's stream): ``violations() == []``,
         and the completions equal an unrecorded engine's bit for bit.
+    (d) Split-K over a cache placed in per-device blocks
+        (:func:`placed_decode`).
 
     Prints one ``phase 15 json`` line; returns the kernel launches of
     (c)'s recorded run."""
@@ -2747,9 +2749,10 @@ def long_context(dev, index, ds, cand, profiled_line, smi, t_start,
                     fd.append((logits.float(), ms))
         return plain, fd, toks
 
-    def gate(label, plain, fd):
+    def gate(label, plain, fd, names=("split-K", "plain")):
         """Split-K logits within LM_ATOL of the plain run's; greedy ids
-        equal wherever the plain top-2 gap exceeds 2 * LM_ATOL."""
+        equal wherever the plain top-2 gap exceeds 2 * LM_ATOL. ``names``
+        says which runs the two are."""
         err, flips, checked, total = 0.0, 0, 0, 0
         for (p, _), (f, _) in zip(plain, fd):
             if not (torch.isfinite(p).all() and torch.isfinite(f).all()):
@@ -2762,9 +2765,9 @@ def long_context(dev, index, ds, cand, profiled_line, smi, t_start,
             flips += int((clear & ~same).sum())
             total += p.shape[0]
         if err > LM_ATOL or flips:
-            fail(f"phase 15{label}: max |split-K - plain| {err:.3g} (atol "
-                 f"{LM_ATOL}), {flips} greedy ids differ")
-        print(f"phase 15{label}: split-K logits == plain within atol "
+            fail(f"phase 15{label}: max |{names[0]} - {names[1]}| {err:.3g} "
+                 f"(atol {LM_ATOL}), {flips} greedy ids differ")
+        print(f"phase 15{label}: {names[0]} logits == {names[1]} within atol "
               f"{LM_ATOL} (max_abs_err {err:.3g}); greedy ids equal on "
               f"{checked} of {total} steps with a top-2 gap > "
               f"{2 * LM_ATOL} [{smi}]", flush=True)
@@ -3038,11 +3041,172 @@ def long_context(dev, index, ds, cand, profiled_line, smi, t_start,
           f"with both engines' warmup); launches {served} [{smi}]",
           flush=True)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # (d) split-K over per-device cache blocks ------------------------------
+    summary["15d"] = placed_decode(dev, smi, event_ms, gate, split_k,
+                                   cache_slots)
+
     print(f"phase 15 json {json.dumps(summary)}", flush=True)
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; elapsed "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     return served
 
+
+
+def placed_decode(dev, smi, event_ms, gate, split_k, cache_slots=0):
+    """15(d). Split-K decode over a KV cache placed in per-device blocks:
+    Qwen2.5-3B at full width cut to 2 of 36 layers, float32, B = 1, a
+    65,536-slot cache (``cache_slots`` overrides it for a rehearsal) on a
+    (1, 4) ("data", "model") mesh whose shards are ``dev`` x 2 and, on a
+    host with two cards, ``cuda:1`` x 2, else the CPU x 2 (``cpu:0`` off
+    the card). The cache's bytes on each device are checked exactly (its
+    two of four sequence blocks of every stack, and on a card the
+    allocator's count when the zeros are placed). Then a 4,096-token
+    prefill (slots / 16) into the placed cache; the slots after it up to
+    the last 8 take K/V drawn from a seed (as 15(a)'s), so every sequence
+    block, the second device's included, holds live slots; and 8 greedy
+    split-K steps at the last 8 positions, against the same steps on a
+    one-device (1, 4) mesh of ``dev`` over the same cache (teacher-forced
+    on that run's tokens): logits within LM_ATOL, greedy ids equal
+    wherever the one-device top-2 gap exceeds 2 * LM_ATOL (phase 12's
+    rule); ms a step (CUDA events, median of steps 2-8) beside the
+    one-device split-K's."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models.transformer import (forward_prefill, init_cache,
+                                                init_lm)
+    from repro_torch.serve import serve_step
+
+    t = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card and torch.cuda.device_count() >= 2:
+        other, where = torch.device("cuda", 1), "cuda:1 (a second card)"
+    elif on_card:
+        other, where = torch.device("cpu"), "the CPU (one card on the host)"
+    else:
+        other, where = torch.device("cpu", 0), "cpu:0 (a rehearsal)"
+    full = get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(full, n_layers=2)
+    S = cache_slots or 65536
+    P, B, STEPS = S // 16, 1, 8
+    one = make_mesh((1, 4), ("data", "model"), device=dev)
+    spread = make_mesh((1, 4), ("data", "model"),
+                       devices=[dev, dev, other, other])
+    dev, other = spread.devices[0], spread.devices[2]   # with their index
+
+    def held_by(cache):
+        held = {dev: 0, other: 0}
+        for st in cache.values():
+            for blocks in st:
+                for d, nb in blocks.bytes_by_device().items():
+                    held[d] += nb
+        return held
+
+    def allocated():
+        return {d: torch.cuda.memory_allocated(d) for d in (dev, other)
+                if d.type == "cuda"}
+
+    # the bytes each device holds: 2 of 4 sequence blocks of k, v and pos
+    kv = cfg.n_layers * B * S * cfg.n_kv_heads * cfg.d_head * 4
+    share = (2 * kv + B * S * 4) // 2
+    before = allocated()
+    cache = init_cache(cfg, B, S, torch.float32, mesh=spread)
+    after = allocated()
+    held = held_by(cache)
+    if held != {dev: share, other: share}:
+        fail(f"phase 15d: cache bytes by device {held}, want {share} on "
+             f"each of {dev} and {other}")
+    grown = {d: after[d] - before[d] for d in after}
+    if any(n != share for n in grown.values()):
+        fail(f"phase 15d: the allocator grew by {grown} placing the cache, "
+             f"want {share} a card")
+    del cache
+
+    model = init_lm(cfg, seed=5, dtype=torch.float32, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator(
+        device=dev).manual_seed(15), device=dev)
+    pos0 = S - STEPS
+
+    def draw(cache):
+        """Seeded K/V at positions P .. pos0 - 1 of every layer, through
+        each placed stack's gathered layer (the same values in any
+        layout)."""
+        g = torch.Generator(device=dev).manual_seed(17)
+        for st in cache.values():
+            for layer in range(st.k.shape[0]):
+                for blocks in (st.k, st.v):
+                    whole = blocks[layer].gather()
+                    whole[:, P:pos0].normal_(generator=g)
+                    blocks[layer] = whole
+            pos = st.pos.gather()
+            pos[:, P:pos0] = torch.arange(P, pos0, dtype=torch.int32,
+                                          device=pos.device)
+            st.pos.copy_(pos)
+
+    with torch.no_grad():
+        p_ms, (last, cache1) = event_ms(lambda: forward_prefill(
+            model, cfg, prompt, S, torch.float32, mesh=one))
+        draw(cache1)
+    tok = torch.argmax(last, -1).to(torch.int32)
+
+    def decode(cache, mesh, feed=None):
+        """STEPS split-K steps on ``mesh``: greedy from ``tok``, or fed
+        ``feed``; (logits, ms) per step and the tokens."""
+        out, toks = [], [tok]
+        with torch.no_grad(), split_k(mesh, B):
+            for i in range(STEPS):
+                cur = toks[i] if feed is None else feed[i]
+                ms, (logits, cache) = event_ms(lambda: serve_step(
+                    model, cfg, cur, pos0 + i, cache))
+                out.append((logits.float(), ms))
+                toks.append(torch.argmax(logits, -1).to(torch.int32))
+        return out, toks
+
+    ref, toks = decode(cache1, one)
+    del cache1
+    with torch.no_grad():
+        s_ms, (last2, cache2) = event_ms(lambda: forward_prefill(
+            model, cfg, prompt, S, torch.float32, mesh=spread))
+        draw(cache2)
+    held2 = held_by(cache2)
+    if held2 != held:
+        fail(f"phase 15d: the prefilled cache holds {held2}, want {held}")
+    for st in cache2.values():            # every block attends over slots
+        if not all(bool((st.pos.parts[i] >= 0).any())
+                   for i in st.pos.stored()):
+            fail("phase 15d: a sequence block holds no live slot")
+    got, _ = decode(cache2, spread, toks)
+    err = gate(f"d qwen2.5-3b full width, 2 of {full.n_layers} layers f32, "
+               f"{S} slots on {dev} x 2 + {other} x 2 vs one device, "
+               f"prefill {P}, drawn to {pos0 - 1}, {STEPS} steps", ref, got,
+               ("placed split-K", "one-device split-K"))
+    perr = float((last2.float() - last.float()).abs().max())
+    if perr > LM_ATOL:
+        fail(f"phase 15d: prefill logits differ by {perr:.3g}")
+    one_ms = statistics.median(ms for _, ms in ref[1:])
+    spread_ms = statistics.median(ms for _, ms in got[1:])
+    out = dict(slots=S, prompt=P, steps=STEPS, first_position=pos0,
+               other=str(other),
+               bytes_by_device={str(d): n for d, n in held.items()},
+               allocator_growth={str(d): n for d, n in grown.items()},
+               one_device_ms=round(one_ms, 3), placed_ms=round(spread_ms, 3),
+               prefill_ms_one=round(p_ms, 3), prefill_ms_placed=round(s_ms, 3),
+               max_abs_err=err, prefill_max_abs_err=perr)
+    print(f"phase 15d placed cache on {dev} x 2 + {where} x 2: "
+          f"{held[dev]} / {held[other]} bytes of cache on {dev} / {other} "
+          f"(exact: 2 of 4 sequence blocks each; allocator growth {grown}); "
+          f"prefill {P} tokens {s_ms:.3f} ms (one device {p_ms:.3f}); "
+          f"K/V drawn at positions {P}..{pos0 - 1}; split-K decode at "
+          f"{pos0}..{S - 1} {spread_ms:.3f} ms a step (median of steps 2-"
+          f"{STEPS}; min {min(ms for _, ms in got[1:]):.3f}, max "
+          f"{max(ms for _, ms in got[1:]):.3f}) beside one-device split-K "
+          f"{one_ms:.3f} ms; max |placed - one device| logits {err:.3g}; "
+          f"{time.perf_counter() - t:.1f} s [{smi}]", flush=True)
+    del model, cache2
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def launcher_account(dev, smi, t_start):

@@ -15,11 +15,28 @@ A placement is the dim a value splits over every mesh axis (an int) or
 ``None`` for a value every shard holds whole. :func:`place` applies one:
 shards that share a device and own neighbouring blocks share one copy, each
 a view of it, so S shards on one card cost one corpus, not S.
+
+:func:`place_blocks` (and :func:`full_blocks`, which makes each device's
+part on that device) places a tensor by a per-dim spec instead, the form
+of ``dist/sharding.py``'s rules: each dim whole or split over a group of
+axes, so two dims may split at once. The KV cache is laid out so
+(``lm_cache_specs``: the batch over the FSDP axes, the slots over
+``model``): shard (i, j) of a (data, model) mesh holds batch block i and
+sequence block j on its own device, and a :class:`Blocks` value keeps one
+block per shard with its offsets. The same rule holds: shards on one device
+whose blocks tile one box share one copy, so S shards on one card still
+cost one cache. For example, a (1, 4) mesh of two CPU devices::
+
+    mesh = make_mesh((1, 4), ("data", "model"),
+                     devices=["cpu", "cpu", "cpu:0", "cpu:0"])
+    cache = init_cache(cfg, 1, 4096, torch.float32, mesh=mesh)
+    cache["all"].k.bytes_by_device()    # half the stack on each device
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -170,34 +187,126 @@ class Sharded:
         return torch.cat([p.to(dev) for p in self.parts], dim=self.dim)
 
 
+def _axes(part) -> Tuple[str, ...]:
+    """The mesh axes one spec entry splits over (``None``: none)."""
+    if part is None:
+        return ()
+    return part if isinstance(part, tuple) else (part,)
+
+
+def _group_size(mesh_shape: Mapping[str, int], axes) -> int:
+    n = 1
+    for a in axes:
+        n *= int(mesh_shape[a])
+    return n
+
+
+def _layout(shape: Sequence[int], mesh: Mesh, spec: Sequence
+            ) -> Tuple[Tuple[int, ...], Tuple[Tuple[int, ...], ...]]:
+    """The block shape of a value of ``shape`` placed by ``spec`` (per dim
+    ``None`` or the axes it splits over, dims past the spec whole), and
+    each shard's block offset in every dim. A dim split over axes (a, b)
+    takes block a_index * |b| + b_index, JAX's order."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    block = []
+    for d, part in enumerate(spec):
+        n = _group_size(mesh.shape, _axes(part))
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of size {shape[d]} does not split "
+                             f"over {n} shards")
+        block.append(shape[d] // n)
+    strides, n = {}, 1
+    for a in reversed(mesh.axis_names):      # row-major shard coordinates
+        strides[a], n = n, n * mesh.shape[a]
+    starts = []
+    for s in range(mesh.size):
+        start = []
+        for d, part in enumerate(spec):
+            i = 0
+            for a in _axes(part):
+                i = i * mesh.shape[a] + (s // strides[a]) % mesh.shape[a]
+            start.append(i * block[d])
+        starts.append(tuple(start))
+    return tuple(block), tuple(starts)
+
+
+def _box(sts, block):
+    """The box [lo, hi) that the blocks at offsets ``sts`` tile, or None
+    where they leave holes in it."""
+    nd = len(block)
+    lo = tuple(min(st[d] for st in sts) for d in range(nd))
+    hi = tuple(max(st[d] for st in sts) + block[d] for d in range(nd))
+    tiles = 1
+    for d in range(nd):
+        tiles *= (hi[d] - lo[d]) // block[d]
+    return (lo, hi) if tiles == len(sts) else None
+
+
+def _place_blocks(shape, mesh: Mesh, spec, make):
+    """Per-shard parts, their offsets and the one copy they all view (or
+    None). A device holds one copy of the box its blocks span where they
+    tile it, each block a view of it. Otherwise each run of consecutive
+    shards on it holds one copy of the box its new blocks tile, a new run
+    starting where a block would leave a hole (a dim split over every axis:
+    runs of shards on one device share a copy, as :func:`place` lays a
+    corpus out). ``make(lo, hi, device)`` returns the box [lo, hi) on
+    ``device``."""
+    block, starts = _layout(shape, mesh, spec)
+    devs = mesh.devices
+    held: Dict[torch.device, Dict[Tuple[int, ...], None]] = {}
+    for s, st in enumerate(starts):
+        held.setdefault(devs[s], {})[st] = None
+    boxes = {}                      # (device, block offset) -> (lo, copy)
+    for dev, sts in held.items():
+        groups = [list(sts)]
+        if _box(groups[0], block) is None:
+            groups, seen = [[]], set()
+            for s, st in enumerate(starts):
+                if devs[s] != dev:
+                    groups.append([])
+                elif st not in seen:
+                    seen.add(st)
+                    if _box(groups[-1] + [st], block) is None:
+                        groups.append([])
+                    groups[-1].append(st)
+        for group in filter(None, groups):
+            lo, hi = _box(group, block)
+            copy = make(lo, hi, dev)
+            for st in group:
+                boxes[dev, st] = (lo, copy)
+    parts = []
+    for s, st in enumerate(starts):
+        lo, t = boxes[devs[s], st]
+        for d in range(len(shape)):
+            if block[d] != t.shape[d]:
+                t = t.narrow(d, st[d] - lo[d], block[d])
+        parts.append(t)
+    copies = {id(t): t for _, t in boxes.values()}
+    return tuple(parts), starts, (next(iter(copies.values()))
+                                  if len(copies) == 1 else None)
+
+
+def _copy_box(x: torch.Tensor):
+    """``make`` for :func:`_place_blocks`: the box of ``x``, moved. A box
+    that is not the whole of ``x`` is a copy even on ``x``'s own device, so
+    that it keeps no other shard's rows alive."""
+    def make(lo, hi, dev):
+        box = x
+        for d, (a, b) in enumerate(zip(lo, hi)):
+            if b - a != x.shape[d]:
+                box = box.narrow(d, a, b - a)
+        moved = box.to(dev)
+        if box is not x and moved.data_ptr() == box.data_ptr():
+            moved = moved.clone()
+        return moved
+    return make
+
+
 def _place_tensor(x: torch.Tensor, mesh: Mesh, dim: Optional[int]):
     """Per-shard parts of ``x`` and the one copy they view (or None)."""
-    devs = mesh.devices
-    if dim is None:
-        copies = {d: x.to(d) for d in dict.fromkeys(devs)}
-        parts = tuple(copies[d] for d in devs)
-        return parts, (parts[0] if len(copies) == 1 else None)
-    S = len(devs)
-    if x.shape[dim] % S:
-        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
-                         f"over {S} shards")
-    c = x.shape[dim] // S
-    parts = [None] * S
-    blocks = []
-    s = 0
-    while s < S:                 # runs of shards on one device share a copy
-        e = s
-        while e + 1 < S and devs[e + 1] == devs[s]:
-            e += 1
-        block = x.narrow(dim, s * c, (e - s + 1) * c)
-        moved = block.to(devs[s])
-        if moved.data_ptr() == block.data_ptr() and (e - s + 1) < S:
-            moved = moved.clone()   # keep no other shard's rows alive
-        blocks.append(moved)
-        for j in range(s, e + 1):
-            parts[j] = moved.narrow(dim, (j - s) * c, c)
-        s = e + 1
-    return tuple(parts), (blocks[0] if len(blocks) == 1 else None)
+    spec = () if dim is None else (None,) * dim + (mesh.axis_names,)
+    parts, _, whole = _place_blocks(x.shape, mesh, spec, _copy_box(x))
+    return parts, whole
 
 
 def place(x, mesh: Mesh, dim: Optional[int]) -> Sharded:
@@ -232,3 +341,112 @@ def shard_parts(x, mesh: Mesh, dim: Optional[int] = 0) -> Tuple[Any, ...]:
                              f"{x.dim}; the step wants {mesh.size}, dim {dim}")
         return x.parts
     return place(x, mesh, dim).parts
+
+
+# ---------------------------------------------------------------------------
+# Placement by a per-dim spec (the KV cache's layout)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Blocks:
+    """A tensor placed on a mesh by a per-dim ``spec`` (``dist/sharding.py``
+    ``Spec``: per dim ``None`` or the axes it splits over): ``parts[s]`` is
+    shard ``s``'s block on ``mesh.devices[s]``, ``starts[s]`` its offset in
+    every dim of the global ``shape``. Shards that hold blocks on one device
+    view that device's copy; a block held on two devices is a copy on each.
+    ``whole`` is the one tensor every part is a view of, where all shards
+    share one device."""
+
+    parts: Tuple[torch.Tensor, ...]
+    spec: Tuple[Any, ...]
+    mesh: Mesh
+    shape: Tuple[int, ...]
+    starts: Tuple[Tuple[int, ...], ...]
+    whole: Optional[torch.Tensor] = None
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    def region(self, s: int) -> Tuple[slice, ...]:
+        """Shard ``s``'s block as a global index."""
+        return tuple(slice(a, a + n) for a, n in
+                     zip(self.starts[s], self.parts[s].shape))
+
+    def stored(self) -> Tuple[int, ...]:
+        """One shard per stored block: the first, in shard order, of the
+        shards that view each (device, block)."""
+        first = {}
+        for s, st in enumerate(self.starts):
+            first.setdefault((self.mesh.devices[s], st), s)
+        return tuple(first.values())
+
+    def __getitem__(self, i: int) -> "Blocks":
+        """Index ``i`` of the leading (unsplit) dim of every block, as a
+        tensor's ``x[i]``: views, so a write lands in the stored blocks."""
+        if _axes(self.spec[0]):
+            raise ValueError("the leading dim is split over the mesh")
+        return Blocks(tuple(p[i] for p in self.parts), self.spec[1:],
+                      self.mesh, self.shape[1:],
+                      tuple(st[1:] for st in self.starts),
+                      None if self.whole is None else self.whole[i])
+
+    def __setitem__(self, i: int, src: torch.Tensor) -> None:
+        """``x[i] = src``: the global ``src`` into index ``i`` of every
+        stored block."""
+        self[i].copy_(src)
+
+    def copy_(self, src: torch.Tensor) -> "Blocks":
+        """Write the global ``src`` into every stored block (each from its
+        own region, moved to the block's device)."""
+        for s in self.stored():
+            self.parts[s].copy_(src[self.region(s)])
+        return self
+
+    def gather(self) -> torch.Tensor:
+        """The global value on the merge device (``devices[0]``): ``whole``
+        where it exists, else the blocks copied into place. Either way the
+        audit counts the global value's bytes as an all-gather."""
+        note_collective("all-gather",
+                        self.parts[0].element_size() * math.prod(self.shape))
+        if self.whole is not None:
+            return self.whole
+        out = torch.empty(self.shape, dtype=self.dtype,
+                          device=self.mesh.devices[0])
+        for s in self.stored():
+            out[self.region(s)].copy_(self.parts[s])
+        return out
+
+    def bytes_by_device(self) -> Dict[torch.device, int]:
+        """Bytes of the storage the parts on each mesh device view, each
+        storage counted once."""
+        seen: Dict[torch.device, Dict[int, int]] = {}
+        for s, p in enumerate(self.parts):
+            st = p.untyped_storage()
+            seen.setdefault(self.mesh.devices[s], {})[st.data_ptr()] = \
+                st.nbytes()
+        return {d: sum(v.values()) for d, v in seen.items()}
+
+
+def place_blocks(x: torch.Tensor, mesh: Mesh, spec) -> Blocks:
+    """Place ``x`` on ``mesh`` by ``spec``: shard (i, j) of a (data, model)
+    mesh and a spec (``data``, ``model``) holds row block i and column block
+    j. Each device holds its copy of the blocks its shards own (views where
+    they tile one box, :func:`_place_blocks`); on one device, the copy is
+    ``x`` itself."""
+    spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    parts, starts, whole = _place_blocks(x.shape, mesh, spec, _copy_box(x))
+    return Blocks(parts, spec, mesh, tuple(x.shape), starts, whole)
+
+
+def full_blocks(shape: Sequence[int], fill, dtype, mesh: Mesh,
+                spec) -> Blocks:
+    """``torch.full(shape, fill)`` placed by ``spec``, each device's copy
+    made on that device (no global tensor is built)."""
+    def make(lo, hi, dev):
+        return torch.full(tuple(b - a for a, b in zip(lo, hi)), fill,
+                          dtype=dtype, device=dev)
+    shape = tuple(shape)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    parts, starts, whole = _place_blocks(shape, mesh, spec, make)
+    return Blocks(parts, spec, mesh, shape, starts, whole)

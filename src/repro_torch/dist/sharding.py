@@ -37,7 +37,8 @@ import re
 from typing import (Any, Dict, Mapping, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
-from repro_torch.dist.mesh import corpus_axes, corpus_specs
+from repro_torch.dist.mesh import (_axes, _group_size, corpus_axes,
+                                   corpus_specs)
 
 MODEL_AXIS = "model"
 
@@ -68,12 +69,6 @@ def tp_axis(mesh) -> Optional[str]:
     return MODEL_AXIS if MODEL_AXIS in tuple(mesh.axis_names) else None
 
 
-def _axes(part: Part) -> Tuple[str, ...]:
-    if part is None:
-        return ()
-    return part if isinstance(part, tuple) else (part,)
-
-
 def _norm(part: Part) -> Part:
     """One entry in canonical form, as JAX's ``PartitionSpec`` stores it: a
     one-axis group is its name, an empty one ``None``."""
@@ -81,13 +76,6 @@ def _norm(part: Part) -> Part:
     if not axes:
         return None
     return axes[0] if len(axes) == 1 else tuple(axes)
-
-
-def _group_size(mesh_shape: Mapping[str, int], axes) -> int:
-    n = 1
-    for a in axes:
-        n *= int(mesh_shape[a])
-    return n
 
 
 def shard_shape(shape: Sequence[int], spec: Spec,

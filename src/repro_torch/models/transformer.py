@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.dist import flash_decode as FD
+from repro_torch.dist.mesh import Blocks, Mesh
 from repro_torch.models import kv_cache as KV
 from repro_torch.models.layers import (MLP, Attention, _param, apply_rope,
                                        attention, dense_init, embed_init,
@@ -137,10 +138,20 @@ def cache_spec(cfg: LMConfig, max_seq: int) -> Dict[str, Tuple[int, int]]:
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device="cuda") -> KV.Cache:
-    return {name: KV.init_stack(n, batch, s, cfg.n_kv_heads, cfg.d_head,
-                                dtype, device)
-            for name, (n, s) in cache_spec(cfg, max_seq).items()}
+               dtype=torch.bfloat16, device="cuda",
+               mesh: Optional[Mesh] = None) -> KV.Cache:
+    """An empty cache on ``device``, or with ``mesh`` every stack placed
+    on it (``KV.init_stack``): each stack's slots must split over the
+    ``model`` shards, a ring stack's window included."""
+    out = {}
+    for name, (n, s) in cache_spec(cfg, max_seq).items():
+        try:
+            out[name] = KV.init_stack(n, batch, s, cfg.n_kv_heads,
+                                      cfg.d_head, dtype, device, mesh)
+        except ValueError as e:
+            raise ValueError(f"{cfg.name}: the {name!r} cache ({batch} x "
+                             f"{s} slots): {e}") from None
+    return out
 
 
 def _window_scalar(cfg: LMConfig, local: bool) -> int:
@@ -288,21 +299,24 @@ def forward_train(params: DecoderLM, cfg: LMConfig, tokens, *,
 
 
 def forward_prefill(params: DecoderLM, cfg: LMConfig, tokens, max_seq: int,
-                    cache_dtype=torch.bfloat16
+                    cache_dtype=torch.bfloat16, mesh: Optional[Mesh] = None
                     ) -> Tuple[torch.Tensor, KV.Cache]:
-    """Prefill: returns (last-token logits (B, V), populated cache)."""
+    """Prefill: returns (last-token logits (B, V), populated cache). With
+    ``mesh`` the cache is placed on it (``init_cache``) and each layer's
+    K/V go into the blocks; the prefill itself runs where the parameters
+    live."""
     tokens = _token_ids(params, tokens)
     B, S = tokens.shape
     x = params.embed[tokens]
     positions = _positions(B, S, tokens.device)
     spec = cache_spec(cfg, max_seq)
-    cache = init_cache(cfg, B, max_seq, cache_dtype, tokens.device)
+    cache = init_cache(cfg, B, max_seq, cache_dtype, tokens.device, mesh)
     for blk, stack, idx, window in _plan(params, cfg):
         x, k_seq, v_seq = _layer(blk, x, positions, cfg, window)
         k, v, pos = KV.prefill_write(k_seq.to(cache_dtype),
                                      v_seq.to(cache_dtype), positions,
                                      spec[stack][1])
-        cache[stack].k[idx] = k
+        cache[stack].k[idx] = k     # placed: into every stored block
         cache[stack].v[idx] = v
         if idx == 0:  # every layer of a stack writes the same positions
             cache[stack].pos.copy_(pos)
@@ -316,10 +330,17 @@ def forward_decode(params: DecoderLM, cfg: LMConfig, token,
                    ) -> Tuple[torch.Tensor, KV.Cache]:
     """One decode step. token (B,) at ``position`` (an int or a 0-d int
     tensor, the same for the batch); returns (logits (B, V), the cache,
-    updated in place)."""
+    updated in place). A placed cache (``init_cache(..., mesh=...)``) takes
+    each write in the blocks that own the slot; split-K attends over the
+    blocks on their devices, and without split-K the blocks are gathered to
+    the parameters' device (``Blocks.gather``, an all-gather)."""
     token = _token_ids(params, token)
     B = token.shape[0]
     x = params.embed[token][:, None, :]                       # (B, 1, D)
+    placed = isinstance(next(iter(cache.values())).k, Blocks)
+    # a placed cache's owning blocks are chosen on the host (a tensor
+    # position is read once a step)
+    write_at = int(position) if placed else None
     position = KV.position_tensor(position, token.device)     # once a step
     positions = position.to(torch.int32).reshape(1, 1).expand(B, 1)
     for blk, stack, idx, window in _plan(params, cfg):
@@ -336,8 +357,12 @@ def forward_decode(params: DecoderLM, cfg: LMConfig, token,
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
         k_upd, v_upd, pos_upd = KV.write_token(
             k_l, v_l, st.pos, k_new.to(k_l.dtype), v_new.to(v_l.dtype),
-            position)
-        kv_valid = pos_upd >= 0
+            write_at if placed else position)
+        if placed and not FD.enabled():     # GSPMD's all-gather of the cache
+            k_upd, v_upd, pos_upd = (k_upd.gather(), v_upd.gather(),
+                                     pos_upd.gather())
+        # a placed cache's validity is taken per block, on its device
+        kv_valid = None if placed and FD.enabled() else pos_upd >= 0
         if FD.enabled():
             # split-K attention over the sequence-sharded cache
             q = h @ blk.attn.wq

@@ -1262,7 +1262,8 @@ def test_pna_train_step_card_matches_cpu(card, no_tf32):
 
 
 # ---------------------------------------------------------------------------
-# split-K decode and the ring collectives on the card (phase 15(a'), (b))
+# split-K decode and the ring collectives on the card (phase 15(a'), (b),
+# (d))
 # ---------------------------------------------------------------------------
 
 GEMMA_LIKE = dict(name="g", n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
@@ -1340,6 +1341,65 @@ def test_split_k_attention_on_card_matches_cpu(card):
             FD.configure(None, None, None)
     torch.testing.assert_close(out[str(card)], out["cpu"], rtol=0,
                                atol=1e-5)
+
+
+def test_split_k_over_per_device_blocks_on_card(card, no_tf32):
+    """Phase 15(d) at test size: a gemma-style decoder (8-slot ring caches
+    in 4 blocks of 2, wrapping during the steps), float32, B = 1, its cache
+    placed on a (1, 4) mesh of the card x 2 and a second card x 2 (or the
+    CPU x 2): each device holds exactly its two sequence blocks of every
+    stack, and 4 split-K steps from the placed prefill equal the same steps
+    on a one-device (1, 4) mesh of the card within atol 1e-4 (a CPU
+    shard's partials sum in the CPU's order; JAX's decode bound)."""
+    from repro_torch.dist import flash_decode as FD
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.dist.sharding import lm_cache_specs
+    from repro_torch.models.transformer import forward_decode, \
+        forward_prefill
+    _, _, model = _lm_twins(card, GEMMA_LIKE, seed=8)
+    cfg = model.cfg
+    other = (torch.device("cuda", 1) if torch.cuda.device_count() >= 2
+             else torch.device("cpu"))
+    one = make_mesh((1, 4), ("data", "model"), device=card)
+    spread = make_mesh((1, 4), ("data", "model"),
+                       devices=[card, card, other, other])
+    prompt = torch.randint(0, cfg.vocab, (1, 12),
+                           generator=torch.Generator().manual_seed(9))
+
+    def run(mesh, toks=None):
+        out, fed = [], []
+        with torch.no_grad():
+            last, cache = forward_prefill(model, cfg, prompt.to(card), 16,
+                                          cache_dtype=torch.float32,
+                                          mesh=mesh)
+            tok = torch.argmax(last, -1)
+            FD.configure(mesh, *lm_cache_specs(mesh, 1)["pos"])
+            try:
+                for step in range(4):
+                    if toks is not None:
+                        tok = toks[step]
+                    fed.append(tok)
+                    logits, cache = forward_decode(model, cfg, tok,
+                                                   12 + step, cache)
+                    out.append(logits.cpu())
+                    tok = torch.argmax(logits, -1)
+            finally:
+                FD.configure(None, None, None)
+        return out, fed, cache
+
+    ref, toks, _ = run(one)
+    got, _, cache = run(spread, toks)
+    for name, st in cache.items():
+        n, s_cache = len(st.k.parts[0]), st.pos.shape[1]
+        per = (2 * n * s_cache * cfg.n_kv_heads * cfg.d_head + s_cache) * 4
+        held = {}
+        for blocks in st:
+            for d, nb in blocks.bytes_by_device().items():
+                held[d] = held.get(d, 0) + nb
+        assert held == {spread.devices[0]: per // 2, other: per // 2}, name
+    for r, g in zip(ref, got):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
 
 
 def test_ring_collectives_on_card(card, no_tf32):

@@ -437,3 +437,35 @@ def test_cli_accounts_one_cell(tmp_path, capsys):
                               "--multi-pod"])
     assert dryrun.main(["--arch", "fm", "--shape", "no_such_shape"]) == 1
     assert "1 failures" in capsys.readouterr().out
+
+
+# Qwen2.5-3B's decode records on the single-pod mesh as accounted before
+# the cache could be placed in per-device blocks: per-device argument and
+# output bytes, counted FLOPs and unfused bytes, reckoned collective bytes
+# (and, with split-K bound, the combine's noted all-reduce bytes). The
+# launcher counts an unplaced cache on ``meta``, so none of them moves.
+DECODE_RECORDS = {
+    ("decode_32k", False): (630_613_540, 604_197_248, 2_026_889_019_392,
+                            2_409_992_192_632, 424_906_752, 4_755_456, {}),
+    ("long_500k", False): (1_234_658_824, 1_208_109_616, 160_790_216_704,
+                           152_192_807_652, 424_906_752, 594_432, {}),
+    ("long_500k", True): (1_234_658_824, 1_208_109_616, 160_790_216_704,
+                          159_489_118_020, 424_906_752, 594_432,
+                          {"all-reduce": 4_792_320}),
+}
+
+
+@pytest.mark.parametrize("shape,flash_decode", list(DECODE_RECORDS))
+def test_qwen_decode_records_are_unchanged(shape, flash_decode):
+    rec = dryrun.run_cell("qwen2.5-3b", shape, make_production_mesh(),
+                          verbose=False, flash_decode=flash_decode)
+    args, outs, flops, unfused, gathered, reduced, noted = \
+        DECODE_RECORDS[shape, flash_decode]
+    assert rec["exact"]["argument_bytes_per_device"] == args
+    assert rec["exact"]["output_bytes_per_device"] == outs
+    assert rec["counted"]["counted_flops"] == flops
+    assert rec["counted"]["counted_unfused_bytes"] == unfused
+    assert rec["counted"]["noted_collective_bytes"] == noted
+    assert rec["reckoned"]["collective_bytes_per_device"] == {
+        "all-gather": gathered, "all-reduce": reduced,
+        "total": gathered + reduced}

@@ -3,7 +3,8 @@
 Layers (``rms_norm``, ``apply_rope``, ``attention`` with and without
 ``q_chunk``), the KV cache writes (``write_token``, ``prefill_write`` full
 and ring), the decoder's forwards (train, hidden, prefill with its cache,
-four decode steps across the ring boundary) and ``generate``, on JAX's own
+four decode steps across the ring boundary) and ``generate`` (also over a
+cache placed on a mesh spread across two CPU devices), on JAX's own
 test flavours (``tests/test_models_lm.py``: dense GQA, SWA ring,
 gemma-style local/global with softcaps, QKV bias; the MoE flavour is in
 ``tests/test_torch_moe.py``). The JAX parameters cross through
@@ -39,6 +40,9 @@ from repro.models.transformer import init_lm as jinit_lm
 from repro.serve.engine import generate as jgenerate
 from repro_torch.configs import get_config
 from repro_torch.configs.base import LM_SHAPES, LMConfig
+from repro_torch.dist import flash_decode as FD
+from repro_torch.dist.mesh import make_mesh
+from repro_torch.dist.sharding import lm_cache_specs
 from repro_torch.models import kv_cache as KV
 from repro_torch.models import layers as L
 from repro_torch.models.convert import lm_from_jax
@@ -290,6 +294,41 @@ def test_generate_matches_jax_where_the_argmax_is_clear(run):
     cfg, model = run["cfg"], run["model"]
     got = generate(model, cfg, torch.from_numpy(run["tokens"][:, :PROMPT]),
                    max_new_tokens=NEW).numpy()
+    _assert_generated_like_jax(got, run)
+
+
+SPREAD = {"1x4": ((1, 4), ["cpu", "cpu", "cpu:0", "cpu:0"]),
+          "2x4": ((2, 4), ["cpu", "cpu", "cpu:0", "cpu:0", "cpu:0", "cpu:0",
+                           "cpu", "cpu"])}
+
+
+@pytest.mark.parametrize("layout", list(SPREAD))
+def test_prefill_into_a_placed_cache_then_generate_match_jax(run, layout):
+    """A cache placed on a mesh spread over two CPU devices (``cpu`` and
+    ``cpu:0``): the prefill's blocks gathered equal JAX's prefill cache;
+    ``generate`` over it with split-K bound follows JAX's ``generate`` by
+    the rule above; unbound (each step gathers the blocks) it equals the
+    unplaced ``generate`` bit for bit."""
+    cfg, model = run["cfg"], run["model"]
+    shape, devices = SPREAD[layout]
+    mesh = make_mesh(shape, ("data", "model"), devices=devices)
+    _, cache = forward_prefill(model, cfg, run["tokens"], MAX_SEQ,
+                               cache_dtype=torch.float32, mesh=mesh)
+    _assert_cache({n: KV.CacheStack(*(b.gather() for b in st))
+                   for n, st in cache.items()}, run["prefill"][1])
+    prompt = torch.from_numpy(run["tokens"][:, :PROMPT])
+    FD.configure(mesh, *lm_cache_specs(mesh, 2)["pos"])
+    try:
+        got = generate(model, cfg, prompt, max_new_tokens=NEW, mesh=mesh)
+    finally:
+        FD.configure(None, None, None)
+    _assert_generated_like_jax(got.numpy(), run)
+    assert torch.equal(generate(model, cfg, prompt, max_new_tokens=NEW,
+                                mesh=mesh),
+                       generate(model, cfg, prompt, max_new_tokens=NEW))
+
+
+def _assert_generated_like_jax(got, run):
     want, logits = run["gen"], run["gen_logits"]
     assert got.shape == want.shape == (2, PROMPT + NEW)
     np.testing.assert_array_equal(got[:, :PROMPT], want[:, :PROMPT])
