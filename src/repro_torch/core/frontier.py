@@ -47,6 +47,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import bounds as B
 from repro_torch.core.bandit import _select_arms, _topk_mask
 from repro_torch.core.batched import (BatchedConfig, CellFn,
@@ -360,16 +361,32 @@ def run_pooled_bandit(
 
     def run_loop(trip, state):
         """Trips until no slot is active or ``trip_limit`` is reached: one
-        host read per trip (the continue test), none inside ``trip``."""
+        host read per trip (the continue test), none inside ``trip``.
+        Adds its trips, host reads, the ns blocked in them and its own ns
+        to the calling thread's open batch stamps (``repro_torch.spans``),
+        where one is open."""
+        stamps = spans.open_stamps()
+        now = spans.now_ns
         trips = 0
+        reads = wait_ns = 0
         occ_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        t_loop = now()
         while trip_limit <= 0 or trips < trip_limit:
             active = ~state.done & (state.rounds < max_rounds)
-            if not bool(active.any()):
+            t = now()
+            go = bool(active.any())
+            wait_ns += now() - t
+            reads += 1
+            if not go:
                 break
             state, occ = trip(state, active)
             occ_sum = occ_sum + occ
             trips += 1
+        if stamps is not None:
+            stamps[spans.TRIPS] += trips
+            stamps[spans.READS] += reads
+            stamps[spans.WAIT_NS] += wait_ns
+            stamps[spans.LOOP_NS] += now() - t_loop
         return state, trips, occ_sum
 
     # Queries with NO valid candidate start retired (rounds stay 0).

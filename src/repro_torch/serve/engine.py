@@ -51,6 +51,7 @@ runs every warmed bucket once under the contract recorder
 """
 from __future__ import annotations
 
+import array
 import dataclasses
 import functools
 import itertools
@@ -66,6 +67,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.analysis.audit import (HLO_DTYPES, AuditReport, AuditSpec,
                                         audit_step, scorecard_budget_bytes)
 from repro_torch.core.draws import TORCH_DRAWS, DrawSource
@@ -240,6 +242,9 @@ class Completion:
     # flushing impossible, supervision budget spent, a continuous-mode slot
     # lost to a thread restart). topk_ids are all -1.
     error: Optional[str] = None
+    # The batch that served it (``BatchRecord.bid``; -1 on an error
+    # completion): its spans are the request's.
+    bid: int = -1
 
 
 @dataclasses.dataclass
@@ -266,6 +271,25 @@ class BatchRecord:
     quarantined: float = 0.0
     # Fidelity-ladder rung the batch ran at (0 = full fidelity).
     degrade_level: int = 0
+    # Batch ordinal (``_Prepared.bid``; each continuous-mode call its own),
+    # shared by the batch's completions.
+    bid: int = -1
+    # The batch's spans and trip counters on the ``time.time_ns()`` clock
+    # (``repro_torch.spans``: one flat array, read through the methods).
+    stamps: Optional[array.array] = None
+
+    def span(self, name: str) -> Optional[Tuple[int, int, int]]:
+        """(native thread id, start ns, end ns) of one of
+        ``spans.SPANS``, None if the batch did not record it."""
+        return None if self.stamps is None else spans.span(self.stamps,
+                                                           name)
+
+    def all_spans(self) -> List[spans.Span]:
+        return [] if self.stamps is None else spans.spans(self.stamps)
+
+    def counter(self, name: str) -> int:
+        """One of ``spans.COUNTERS`` (0 where nothing counted)."""
+        return 0 if self.stamps is None else spans.counter(self.stamps, name)
 
 
 class EngineMetrics:
@@ -281,6 +305,9 @@ class EngineMetrics:
         self.batches: List[BatchRecord] = []
         self.compiles: Dict[tuple, int] = {}
         self.compiles_after_warmup: int = 0
+        # Each build after warmup: (bucket key, native thread id, start ns,
+        # end ns) on the spans' clock.
+        self.builds: List[Tuple[tuple, int, int, int]] = []
         # Backpressure accounting (async engine): requests refused outright
         # and requests admitted with a truncated candidate list.
         self.rejected: int = 0
@@ -297,11 +324,14 @@ class EngineMetrics:
         # Serving threads restarted by the supervision watchdog.
         self.thread_restarts: Dict[str, int] = {}
 
-    def record_compile(self, key: tuple, after_warmup: bool) -> None:
+    def record_compile(self, key: tuple, after_warmup: bool,
+                       start_ns: int, end_ns: int) -> None:
         with self._lock:
             self.compiles[key] = self.compiles.get(key, 0) + 1
             if after_warmup:
                 self.compiles_after_warmup += 1
+                self.builds.append((key, threading.get_native_id(),
+                                    start_ns, end_ns))
 
     def record_batch(self, record: BatchRecord,
                      completions: Sequence[Completion]) -> None:
@@ -429,6 +459,9 @@ class _Prepared(NamedTuple):
     # Per-request share of the candidates on healthy shards (None = all).
     coverage: Optional[np.ndarray] = None
     degrade_level: int = 0
+    # The batch's spans (``repro_torch.spans``): ``_prepare_batch`` makes
+    # them at release, and every stage after it stamps them.
+    stamps: Optional[array.array] = None
 
 
 class RetrievalEngine:
@@ -623,9 +656,11 @@ class RetrievalEngine:
             exe = self._exec.get(key)
             if exe is not None:
                 return exe
+            t0 = spans.now_ns()
             exe = self._build(key)
+            t1 = spans.now_ns()
             self._exec[key] = exe
-        self.metrics.record_compile(key, after_warmup=self._warmed)
+        self.metrics.record_compile(key, self._warmed, t0, t1)
         return exe
 
     def _tensor(self, x) -> torch.Tensor:
@@ -817,10 +852,16 @@ class RetrievalEngine:
         self.metrics.autotune_buckets += measured
         return measured
 
-    def warmup(self) -> List[tuple]:
+    def warmup(self, keys: Optional[Sequence[tuple]] = None) -> List[tuple]:
         """Build and run once every bucket the policy can reach; after this
         returns the engine serves any admissible stream with zero builds,
         and no serving thread ever compiles a kernel.
+
+        ``keys`` warms only those bucket keys (``("step", flavor, tb,
+        nb)``, ``("stage1", tb)``, ``("routed", flavor, tb)``,
+        ``("stream", tb, nb)``), for a deployment whose traffic reaches no
+        other: a batch outside them is then built on the serving path and
+        counted in ``metrics.compiles_after_warmup`` and ``metrics.builds``.
 
         With ``cfg.autotune`` the launch shapes are tuned first (per shape
         bucket, reusing and persisting ``cfg.tuning_table``), so the warmed
@@ -839,27 +880,33 @@ class RetrievalEngine:
                 tuning.save_table(cfg.tuning_table, keys={
                     tuning.bucket_key(op, dims)
                     for op, dims in self._autotune_dims()})
+        for key in (self._reachable_keys() if keys is None else keys):
+            self._executable(tuple(key))
+        self._warmed = True
+        if cfg.audit:
+            self.audit()
+        return self.compiled_buckets
+
+    def _reachable_keys(self) -> List[tuple]:
+        """Every bucket key the policy can reach."""
+        out: List[tuple] = []
         for tb in self.buckets.token_buckets:
             if not self._quantized:
                 # Stage 1 scans raw token rows; quantized engines reject
                 # candidate-less requests at submit, so the bucket is
                 # unreachable there.
-                self._executable(("stage1", tb))
+                out.append(("stage1", tb))
             if self._routed:
                 # Candidate-less batches go to the routed step; the host
                 # stage-1 and step buckets serve mixed traffic.
-                self._executable(("routed", self.flavor_for(self._stage1_n),
-                                  tb))
+                out.append(("routed", self.flavor_for(self._stage1_n), tb))
             for nb in self.buckets.cand_buckets:
                 # flavor_for is a pure function of the bucket, so exactly
                 # one flavor is reachable per (tb, nb).
-                self._executable(("step", self.flavor_for(nb), tb, nb))
-        if cfg.continuous:
-            self._executable(("stream", *self._stream_bucket))
-        self._warmed = True
-        if cfg.audit:
-            self.audit()
-        return self.compiled_buckets
+                out.append(("step", self.flavor_for(nb), tb, nb))
+        if self.cfg.continuous:
+            out.append(("stream", *self._stream_bucket))
+        return out
 
     # -- serving-contract audit -------------------------------------------
 
@@ -1051,15 +1098,29 @@ class RetrievalEngine:
 
     def _serve_batch(self, reqs: Sequence[Request],
                      n_real: int) -> List[Completion]:
-        """Synchronous path: prepare, dispatch, and harvest back to back."""
+        """Synchronous path: prepare, dispatch, and harvest back to back
+        (its ``queued`` and ``held`` spans have zero length, and its
+        ``deliver`` too: the completions are returned)."""
         prep = self._prepare_batch(reqs, n_real, self.clock())
-        return self._finish_batch(prep, self._dispatch_batch(prep))
+        done = self._finish_batch(prep, self._dispatch_batch(prep))
+        spans.instant(prep.stamps, spans.DELIVER, spans.now_ns())
+        return done
 
     def _dispatch_batch(self, prep: _Prepared):
         """Call the batch's step. The dense step returns device tensors
         without waiting; the bandit step's trip loop reads the device every
-        trip, so it returns when the batch is done."""
-        return prep.exe(*prep.args)
+        trip, so it returns when the batch is done. Records the ``step``
+        span, with the batch's stamps open for the trip loop's counters,
+        and opens ``held``."""
+        st = prep.stamps
+        spans.begin(st, spans.STEP)
+        prev = spans.open_batch(st)
+        try:
+            return prep.exe(*prep.args)
+        finally:
+            spans.open_batch(prev)
+            spans.end(st, spans.STEP)
+            spans.instant(st, spans.HELD, st[spans.STEP + 2])
 
     def _degrade_level(self, real: Sequence[Request], flavor: str) -> int:
         """Fidelity-ladder rung for this batch: 0 unless the degrade
@@ -1081,15 +1142,44 @@ class RetrievalEngine:
     def _stage1(self, tb: int, queries: np.ndarray):
         """Stage-1 candidate ids and Eq. 15 bounds of (n, tb, M) host
         queries, as host numpy. Each query's candidates depend on it alone,
-        so only the rows that need them are computed."""
+        so only the rows that need them are computed. Records the
+        ``stage1`` span of the calling thread's open batch."""
+        st = spans.open_stamps()
+        if st is not None:
+            spans.begin(st, spans.STAGE1)
         out = self._executable(("stage1", tb))(
             *self._stage1_operands(), self._tensor(queries))
-        return tuple(x.cpu().numpy() for x in out)
+        out = tuple(x.cpu().numpy() for x in out)
+        if st is not None:
+            spans.end(st, spans.STAGE1)
+            st[spans.STAGE1_QUERIES] += len(queries)
+        return out
 
     def _prepare_batch(self, reqs: Sequence[Request], n_real: int,
                        t_release: float) -> _Prepared:
         """Host-side batch assembly: bucket, pad, stage 1 - no waiting on
-        the main step."""
+        the main step. Records the ``admit`` span (its children ``stage1``
+        and ``upload``) and opens ``queued``."""
+        st = spans.new()
+        spans.begin(st, spans.ADMIT)
+        prev = spans.open_batch(st)
+        try:
+            prep = self._assemble_batch(reqs, n_real, t_release, st)
+        finally:
+            spans.open_batch(prev)
+        spans.end(st, spans.ADMIT)
+        spans.instant(st, spans.QUEUED, st[spans.ADMIT + 2])
+        return prep
+
+    def _upload(self, st: array.array, *host) -> List[torch.Tensor]:
+        """The batch's host operands on the device (the ``upload`` span)."""
+        spans.begin(st, spans.UPLOAD)
+        out = [self._tensor(x) for x in host]
+        spans.end(st, spans.UPLOAD)
+        return out
+
+    def _assemble_batch(self, reqs: Sequence[Request], n_real: int,
+                        t_release: float, st: array.array) -> _Prepared:
         cfg = self.cfg
         real = list(reqs[:n_real])
         tb = self.buckets.token_bucket(max(r.query.shape[0] for r in real))
@@ -1097,7 +1187,7 @@ class RetrievalEngine:
         missing = [c is None for c in provided]
         if self._routed and all(missing):
             return self._prepare_batch_routed(reqs, real, n_real, tb,
-                                              t_release)
+                                              t_release, st)
         n_need = max([len(c) for c in provided if c is not None], default=0)
         if any(missing):
             n_need = max(n_need, self._stage1_n)
@@ -1138,15 +1228,14 @@ class RetrievalEngine:
             else:
                 a_l, b_l = routed
             args = (self.corpus_embs, self.corpus_mask,
-                    self._tensor(queries), self._tensor(cand_l),
-                    self._tensor(a_l), self._tensor(b_l), sc.valid_docs,
-                    ordinal, hl, a_s, r_c)
+                    *self._upload(st, queries, cand_l, a_l, b_l),
+                    sc.valid_docs, ordinal, hl, a_s, r_c)
         else:
             args = (self.corpus_embs, self.corpus_mask,
-                    self._tensor(queries), self._tensor(cand),
-                    self._tensor(a), self._tensor(b), ordinal, a_s, r_c)
+                    *self._upload(st, queries, cand, a, b), ordinal, a_s,
+                    r_c)
         return _Prepared(real, n_real, (tb, nb), flavor, exe, args,
-                         t_release, next(self._bid), cov, level)
+                         t_release, next(self._bid), cov, level, st)
 
     @staticmethod
     def _candidate_coverage(cand: np.ndarray, real: Sequence[Request],
@@ -1166,7 +1255,8 @@ class RetrievalEngine:
 
     def _prepare_batch_routed(self, reqs: Sequence[Request],
                               real: List[Request], n_real: int, tb: int,
-                              t_release: float) -> _Prepared:
+                              t_release: float,
+                              st: array.array) -> _Prepared:
         """Candidate-less batches on a routed engine: no host stage 1, no
         routing tables; queries in, scorecards out."""
         nb = self._stage1_n
@@ -1186,18 +1276,23 @@ class RetrievalEngine:
                           float(vd[hl].sum() / max(vd.sum(), 1.0)),
                           np.float32)
         args = (self.corpus_embs, self.corpus_mask, *self._router_args,
-                self._tensor(queries), self.corpus.valid_docs, ordinal, hl,
-                a_s, r_c)
+                *self._upload(st, queries), self.corpus.valid_docs, ordinal,
+                hl, a_s, r_c)
         return _Prepared(real, n_real, (tb, nb), flavor, exe, args,
-                         t_release, next(self._bid), cov, level)
+                         t_release, next(self._bid), cov, level, st)
 
     def _finish_batch(self, prep: _Prepared, out) -> List[Completion]:
         """Completion harvest: copies the step's outputs to the host (the
-        wait on the device) and attributes them."""
+        wait on the device) and attributes them. Records the ``harvest``
+        span and its child ``download``."""
         cfg = self.cfg
+        st = prep.stamps
+        spans.begin(st, spans.HARVEST)
         real, n_real = prep.real, prep.n_real
         bucket, flavor, t_release = prep.bucket, prep.flavor, prep.t_release
+        spans.begin(st, spans.DOWNLOAD)
         scores, gids, frac, stats = (x.cpu().numpy() for x in out)
+        spans.end(st, spans.DOWNLOAD)
         t_done = self.clock()
 
         shard_occ = shard_rounds = shard_quota = None
@@ -1233,7 +1328,7 @@ class RetrievalEngine:
             shard_rounds=shard_rounds,
             shard_quota_share=shard_quota,
             quarantined=quarantined,
-            degrade_level=prep.degrade_level)
+            degrade_level=prep.degrade_level, bid=prep.bid, stamps=st)
 
         done: List[Completion] = []
         for i, r in enumerate(real):
@@ -1252,8 +1347,9 @@ class RetrievalEngine:
                 coverage=(float(prep.coverage[i])
                           if prep.coverage is not None else 1.0)
                 * r.coverage_scale,
-                degrade_level=prep.degrade_level))
+                degrade_level=prep.degrade_level, bid=prep.bid))
         self.metrics.record_batch(record, done)
+        spans.end(st, spans.HARVEST)
         return done
 
 
@@ -1419,6 +1515,7 @@ class AsyncRetrievalEngine(RetrievalEngine):
                              "repro-dispatch": self._dispatch_loop}
         self._thread_by_name = {}
         self._started = True
+        spans.hook_gc()
         if self.cfg.supervise:
             self._supervisor = Supervisor(
                 max_restarts=self.cfg.max_thread_restarts,
@@ -1484,9 +1581,12 @@ class AsyncRetrievalEngine(RetrievalEngine):
         for t in list(self._thread_by_name.values()):
             t.join(timeout=60.0)
         self._started = False
-        if self._thread_exc is None:
-            self._shutdown_flush()
-        self._fail_pending("engine stopped before serving this request")
+        try:
+            if self._thread_exc is None:
+                self._shutdown_flush()
+            self._fail_pending("engine stopped before serving this request")
+        finally:
+            spans.unhook_gc()
         self._raise_if_failed()
 
     def __enter__(self) -> "AsyncRetrievalEngine":
@@ -1726,20 +1826,29 @@ class AsyncRetrievalEngine(RetrievalEngine):
         dying inside ``_finish_batch`` leaves it for the restarted thread.
         The ``bid`` guard skips a head whose predecessor died between
         delivering and popping; rid-dedup in ``_deliver`` backstops the
-        symmetric window."""
+        symmetric window. Closes the batch's ``held`` span."""
         with self._inflight_lock:
             if not self._disp_inflight:
                 return False
             p, o = self._disp_inflight[0]
         if p.bid not in self._harvested:
+            spans.end(p.stamps, spans.HELD)
             comps = self._finish_batch(p, o)
             self._harvested.add(p.bid)
-            self._deliver(comps)
+            self._deliver_batch(p, comps)
         with self._inflight_lock:
             if self._disp_inflight and self._disp_inflight[0][0].bid == p.bid:
                 self._disp_inflight.popleft()
             self._inflight = len(self._disp_inflight)
         return True
+
+    def _deliver_batch(self, prep: _Prepared,
+                       comps: Sequence[Completion]) -> None:
+        """``_deliver`` a harvested batch, recording its ``deliver`` span
+        onto its record."""
+        spans.begin(prep.stamps, spans.DELIVER)
+        self._deliver(comps)
+        spans.end(prep.stamps, spans.DELIVER)
 
     def _dispatch_loop(self) -> None:
         """Launch prepared batches; keep up to ``pipeline_depth`` in
@@ -1758,6 +1867,7 @@ class AsyncRetrievalEngine(RetrievalEngine):
                     pass
                 return
             if prep is not None:
+                spans.end(prep.stamps, spans.QUEUED)
                 with self._inflight_lock:
                     self._disp_inflight.append(
                         (prep, self._dispatch_batch(prep)))
@@ -1794,15 +1904,16 @@ class AsyncRetrievalEngine(RetrievalEngine):
         for prep in leftovers:
             if prep.bid in self._harvested:
                 continue
+            spans.end(prep.stamps, spans.QUEUED)
             comps = self._finish_batch(prep, self._dispatch_batch(prep))
             self._harvested.add(prep.bid)
-            self._deliver(comps)
+            self._deliver_batch(prep, comps)
         while True:
             out = self._batcher.poll() or self._batcher.flush()
             if out is None:
                 break
             prep = self._prepare_batch(out[0], out[1], self.clock())
-            self._deliver(self._finish_batch(
+            self._deliver_batch(prep, self._finish_batch(
                 prep, self._dispatch_batch(prep)))
 
     def _error_completion(self, rid: int, reason: str,
@@ -1843,7 +1954,13 @@ class AsyncRetrievalEngine(RetrievalEngine):
         """Slot-level continuous batching: one resumable frontier of
         ``batch_size`` slots; retired slots are harvested and refilled
         from the admission queue between slices while the other slots'
-        bandit state carries forward on the device."""
+        bandit state carries forward on the device.
+
+        Each call's record carries ``admit`` (the refill, with ``stage1``
+        for candidate-less slots and ``upload``), ``step`` with the trip
+        counters, ``harvest`` with ``download``, and ``deliver``; a slot
+        never waits in a prepared queue or behind a pipeline, so
+        ``queued`` and ``held`` stay empty."""
         cfg = self.cfg
         B = cfg.batch_size
         tb, nb = self._stream_bucket
@@ -1864,6 +1981,8 @@ class AsyncRetrievalEngine(RetrievalEngine):
 
         while True:
             self._chaos("stream")
+            st = spans.new()
+            spans.begin(st, spans.ADMIT)
             # 1. Refill retired slots from the admission queue.
             newly: List[int] = []
             for s in range(B):
@@ -1881,8 +2000,12 @@ class AsyncRetrievalEngine(RetrievalEngine):
             if newly:
                 need = [s for s in newly if slot[s].cand_ids is None]
                 if need:
-                    ids1, a1, b1 = self._stage1(tb, pad_queries(
-                        [slot[s].query for s in need], tb))
+                    prev = spans.open_batch(st)
+                    try:
+                        ids1, a1, b1 = self._stage1(tb, pad_queries(
+                            [slot[s].query for s in need], tb))
+                    finally:
+                        spans.open_batch(prev)
                     stage1_row = {s: j for j, s in enumerate(need)}
                 n1 = self._stage1_n
                 for s in newly:
@@ -1917,13 +2040,24 @@ class AsyncRetrievalEngine(RetrievalEngine):
 
             # 2. One slice: every live slot advances trip_limit trips.
             t0 = self.clock()
-            *outs, state = exe(
-                self.corpus_embs, self.corpus_mask, self._tensor(queries),
-                self._tensor(cand), self._tensor(a_np), self._tensor(b_np),
-                state, self._tensor(fresh), seeds)
+            q_d, c_d, a_d, b_d, f_d = self._upload(st, queries, cand, a_np,
+                                                   b_np, fresh)
+            spans.end(st, spans.ADMIT)
+            spans.begin(st, spans.STEP)
+            prev = spans.open_batch(st)
+            try:
+                *outs, state = exe(self.corpus_embs, self.corpus_mask, q_d,
+                                   c_d, a_d, b_d, state, f_d, seeds)
+            finally:
+                spans.open_batch(prev)
+                spans.end(st, spans.STEP)
+            spans.begin(st, spans.HARVEST)
+            spans.begin(st, spans.DOWNLOAD)
             scores, gids, frac, stats, harvest = (x.cpu().numpy()
                                                   for x in outs)
+            spans.end(st, spans.DOWNLOAD)
             t_done = self.clock()
+            bid = next(self._bid)
 
             # 3. Harvest retired slots.
             comps: List[Completion] = []
@@ -1941,7 +2075,7 @@ class AsyncRetrievalEngine(RetrievalEngine):
                                    and t_done > r.deadline_abs + 1e-9),
                     flavor="bandit", bucket=(tb, nb),
                     reveal_fraction=float(frac[s]),
-                    coverage=r.coverage_scale))
+                    coverage=r.coverage_scale, bid=bid))
                 slot[s] = None
             service_s = t_done - t0
             with self._state_lock:
@@ -1955,5 +2089,8 @@ class AsyncRetrievalEngine(RetrievalEngine):
                 frontier_occupancy=float(stats[0]),
                 total_rounds=float(stats[1]),
                 lockstep_waste=float(stats[2]),
-                quarantined=float(stats[3])), comps)
+                quarantined=float(stats[3]), bid=bid, stamps=st), comps)
+            spans.end(st, spans.HARVEST)
+            spans.begin(st, spans.DELIVER)
             self._deliver(comps)
+            spans.end(st, spans.DELIVER)
