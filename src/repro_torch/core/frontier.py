@@ -5,8 +5,9 @@ One global loop drives all Q queries of a batch at once:
   1. every trip, each still-active query runs the shared LUCB block
      selection (``core.batched._round_select``),
   2. the selected (doc, token) blocks of all queries are pooled into one
-     frontier: doc ids are query-offset into the stacked (Q*N, L, M)
-     candidate tensor, token ids into the stacked (Q*T, M) token table,
+     frontier: doc ids are query-offset into the Q*N stacked candidate
+     slots (the cell source reads each slot's doc where it lies), token ids
+     into the stacked (Q*T, M) token table,
   3. the whole frontier goes through ONE reveal launch per trip,
   4. per-query done-masks retire finished queries (their slots drop out,
      their round counters freeze); with ``cfg.max_block_docs`` /
@@ -359,12 +360,13 @@ def run_pooled_bandit(
             quarantined=quar_q.sum(dim=1),
         )
 
-    def run_loop(trip, state):
+    def run_loop(trip, state, trip_rows: int):
         """Trips until no slot is active or ``trip_limit`` is reached: one
         host read per trip (the continue test), none inside ``trip``.
-        Adds its trips, host reads, the ns blocked in them and its own ns
-        to the calling thread's open batch stamps (``repro_torch.spans``),
-        where one is open."""
+        Adds its trips, host reads, the ns blocked in them, its own ns and
+        the frontier rows the reveal launches staged (the init launch's
+        Q*N, ``trip_rows`` a trip) to the calling thread's open batch
+        stamps (``repro_torch.spans``), where one is open."""
         stamps = spans.open_stamps()
         now = spans.now_ns
         trips = 0
@@ -387,6 +389,7 @@ def run_pooled_bandit(
             stamps[spans.READS] += reads
             stamps[spans.WAIT_NS] += wait_ns
             stamps[spans.LOOP_NS] += now() - t_loop
+            stamps[spans.REVEAL_ROWS] += Q * N + trips * trip_rows
         return state, trips, occ_sum
 
     # Queries with NO valid candidate start retired (rounds stay 0).
@@ -447,9 +450,11 @@ def run_pooled_bandit(
                 rounds=st.rounds + active.to(torch.int64),
                 done=st.done | (active & (sel.stop | no_progress))), occ
 
+        # A trip launches the compacted F-row frontier with growth, else
+        # the Q*W selection rows.
         state, trips, occ_sum = run_loop(
             fused_trip, FrontierState(cellvals0, stats0, draw0, rounds0,
-                                      done0))
+                                      done0), F if half_w > half else Q * W)
         res = finalize(state.stats[:, 0], state.stats[:, 1],
                        state.stats[:, 2], state.cellvals < _REV_THRESH,
                        state.rounds, trips, occ_sum,
@@ -510,7 +515,7 @@ def run_pooled_bandit(
             draw=draw, rounds=st.rounds + active.to(torch.int64),
             done=st.done | (active & (sel.stop | no_progress))), occ
 
-    state, trips, occ_sum = run_loop(chain_trip, state)
+    state, trips, occ_sum = run_loop(chain_trip, state, F)
     res = finalize(state.n, state.total, state.total_sq, state.revealed,
                    state.rounds, trips, occ_sum,
                    (state.revealed & (state.values <= _QUAR_THRESH)

@@ -173,22 +173,37 @@ def _maxsim_batch_launch(doc_embs, doc_tok_mask, queries, block_n: int):
                   queries.contiguous(), block_n)
 
 
+def _reveal_dims(op: str, doc_embs, queries, tok_idx,
+                 doc_rows: Optional[int]) -> Dict[str, int]:
+    """A reveal launch's tuning dims; ``doc_rows`` stands for D where the
+    rows are read in place from a larger tensor."""
+    shape = tuple(doc_embs.shape)
+    if doc_rows is not None:
+        shape = (doc_rows, *shape[1:])
+    return launch_dims(op, shape, queries.shape, corpus_format(doc_embs),
+                       tok_idx.shape)
+
+
 def gather_maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                      queries: torch.Tensor, doc_idx: torch.Tensor,
                      tok_idx: torch.Tensor, *,
-                     block_l: Optional[int] = None) -> torch.Tensor:
+                     block_l: Optional[int] = None,
+                     doc_rows: Optional[int] = None) -> torch.Tensor:
     """Gathered MaxSim for the bandit reveal: out[s, g] = max_j
     <E[doc_idx[s], j], Q[tok_idx[s, g]]> over valid j, (S,) x (S, G) ->
-    (S, G). The pooled frontier passes query-offset ids into stacked
-    (Q*N, L, M) / (Q*T, M) tensors; this op is oblivious to the stacking."""
+    (S, G). The pooled frontier passes query-offset token ids into a
+    stacked (Q*T, M) table and doc ids into the resident corpus or a
+    stacked (Q*N, L, M) block; this op is oblivious to either. ``doc_rows``
+    is the D of the launch's tuning bucket (default: ``doc_embs``' rows):
+    the Q*N candidate rows a frontier addresses in the resident corpus."""
     if doc_idx.shape[0] != tok_idx.shape[0]:
         raise ValueError(
             f"gather_maxsim_op: doc_idx has {doc_idx.shape[0]} rows but "
             f"tok_idx has {tok_idx.shape[0]} — every selection row needs "
             "one doc id and one token block")
-    cfg = _resolve("gather_maxsim", launch_dims(
-        "gather_maxsim", doc_embs.shape, queries.shape,
-        corpus_format(doc_embs), tok_idx.shape), block_l=block_l)
+    cfg = _resolve("gather_maxsim", _reveal_dims(
+        "gather_maxsim", doc_embs, queries, tok_idx, doc_rows),
+        block_l=block_l)
     if not _on_cuda("gather_maxsim_op", doc_embs, doc_tok_mask, queries,
                     doc_idx, tok_idx):
         return gather_maxsim_plain(doc_embs, doc_tok_mask, queries, doc_idx,
@@ -203,14 +218,16 @@ def gather_maxsim_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
 def fused_reveal_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
                     queries: torch.Tensor, doc_idx: torch.Tensor,
                     tok_idx: torch.Tensor, new_mask: torch.Tensor, *,
-                    block_l: Optional[int] = None
+                    block_l: Optional[int] = None,
+                    doc_rows: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused reveal round: gathered MaxSim values for the frontier's
     selected cells plus the per-row sufficient-statistic deltas.
 
     doc_idx (F,), tok_idx (F, G), new_mask (F, G) ->
       (vals (F, G) f32, stats (F, 3) f32 = [d_count, d_total, d_total_sq])
-    with the stats summed over the ``new_mask`` cells only."""
+    with the stats summed over the ``new_mask`` cells only. ``doc_rows``
+    as in :func:`gather_maxsim_op`."""
     if doc_idx.shape[0] != tok_idx.shape[0] \
             or tok_idx.shape != new_mask.shape:
         raise ValueError(
@@ -218,9 +235,9 @@ def fused_reveal_op(doc_embs: torch.Tensor, doc_tok_mask: torch.Tensor,
             f"({doc_idx.shape[0]}, {tuple(tok_idx.shape)}, "
             f"{tuple(new_mask.shape)}) — every selection row needs one doc "
             "id and matching (G,) token and freshness columns")
-    cfg = _resolve("fused_reveal", launch_dims(
-        "fused_reveal", doc_embs.shape, queries.shape,
-        corpus_format(doc_embs), tok_idx.shape), block_l=block_l)
+    cfg = _resolve("fused_reveal", _reveal_dims(
+        "fused_reveal", doc_embs, queries, tok_idx, doc_rows),
+        block_l=block_l)
     if not _on_cuda("fused_reveal_op", doc_embs, doc_tok_mask, queries,
                     doc_idx, tok_idx, new_mask):
         return fused_reveal_plain(doc_embs, doc_tok_mask, queries, doc_idx,

@@ -22,6 +22,9 @@ make_streaming_step
 
 ``corpus_embs`` may be a compressed corpus (``kernels.quant.QuantTokens``):
 the candidates are gathered leaf-wise and the kernels dequantize in place.
+The pooled engines and the streaming step gather nothing: their reveal
+kernels read each revealed doc in place in the resident corpus, by its
+global id.
 The batch steps share one signature (``make_serving_step``)::
 
     step(corpus_embs, corpus_mask, queries (B, T, M), cand_ids (B, N),
@@ -91,23 +94,41 @@ def _local_maxsim_scores(doc_embs, doc_mask, queries):
     return h.sum(dim=-1)
 
 
-def _stacked_cells(docs, dmask, queries):
-    """The pooled engine's cell sources over (B, N, L, M) candidates
-    stacked to (B*N, L, M) and query tokens stacked to (B*T, M): the chain
-    contract (``gather_maxsim``) and the fused one (``fused_reveal``)."""
-    Bq, N, L, M = docs.shape
-    T = queries.shape[1]
-    stacked = corpus_reshape(docs, Bq * N)    # quantized: leaf-wise reshape
-    stacked_mask = dmask.reshape(Bq * N, L)
-    flat_q = queries.reshape(Bq * T, M)
+def _stacked_cells(embs, mask, queries, cand_ids=None):
+    """The pooled engine's cell sources, the chain contract
+    (``gather_maxsim``) and the fused one (``fused_reveal``), over the
+    frontier's Q*N candidate rows and query tokens stacked to (Q*T, M).
+
+    With ``cand_ids`` (Q, N), ``embs`` (C, L, M) / ``mask`` (C, L) are the
+    resident corpus, read in place: frontier row q*N + i reads corpus row
+    ``cand_ids[q, i]``. A padded slot (-1) reads row 0; the frontier keeps
+    its cells out of the statistics (``doc_mask``). Without, they are a
+    gathered (Q, N, L, M) block and frontier row q*N + i is its own row.
+    Either way the launch's tuning bucket counts the Q*N rows."""
+    Q, T, M = queries.shape
+    flat_q = queries.reshape(Q * T, M)
+    if cand_ids is None:
+        n_rows, L = embs.shape[0] * embs.shape[1], embs.shape[2]
+        src = corpus_reshape(embs, n_rows)    # quantized: leaf-wise reshape
+        src_mask = mask.reshape(n_rows, L)
+
+        def rows(flat_doc):
+            return flat_doc
+    else:
+        n_rows = cand_ids.numel()
+        src, src_mask = embs, mask
+        doc_ids = torch.clamp(cand_ids, min=0).reshape(-1).to(torch.int64)
+
+        def rows(flat_doc):
+            return doc_ids[flat_doc]
 
     def cells(flat_doc, flat_tok):
-        return gather_maxsim_op(stacked, stacked_mask, flat_q, flat_doc,
-                                flat_tok)
+        return gather_maxsim_op(src, src_mask, flat_q, rows(flat_doc),
+                                flat_tok, doc_rows=n_rows)
 
     def cells_fused(flat_doc, flat_tok, new_mask):
-        return fused_reveal_op(stacked, stacked_mask, flat_q, flat_doc,
-                               flat_tok, new_mask)
+        return fused_reveal_op(src, src_mask, flat_q, rows(flat_doc),
+                               flat_tok, new_mask, doc_rows=n_rows)
 
     return cells, cells_fused
 
@@ -148,15 +169,18 @@ def rerank_dense_step(corpus_embs, corpus_mask, queries, cand_ids, a=None,
 
 
 def _pooled_rerank(docs, dmask, queries, cand_ids, a, b, seeds,
-                   cfg: BatchedConfig, *, fused: bool, draws=None,
-                   prereveal=None, prereveal_vals=None, alpha_scale=None,
-                   round_cap=None):
-    """Pooled frontier engine over pre-gathered candidates: every trip
-    reveals all queries' blocks in one launch on query-offset indices.
+                   cfg: BatchedConfig, *, fused: bool, in_place=False,
+                   draws=None, prereveal=None, prereveal_vals=None,
+                   alpha_scale=None, round_cap=None):
+    """Pooled frontier engine: every trip reveals all queries' blocks in
+    one launch on query-offset indices. ``docs``/``dmask`` are the gathered
+    (B, N, L, M) candidates, or with ``in_place`` the resident corpus,
+    read by ``cand_ids`` (:func:`_stacked_cells`).
     ``prereveal``/``prereveal_vals`` (B, N, T) seed exactly-known cells at
     zero reveal cost; ``alpha_scale``/``round_cap`` are the fidelity
     knobs."""
-    cells, cells_fused = _stacked_cells(docs, dmask, queries)
+    cells, cells_fused = _stacked_cells(docs, dmask, queries,
+                                        cand_ids if in_place else None)
     res = run_pooled_bandit(cells, a, b, seeds, cfg, draws=draws,
                             doc_mask=cand_ids >= 0,
                             compute_cells_fused=cells_fused, fused=fused,
@@ -263,13 +287,18 @@ def rerank_bandit_step(corpus_embs, corpus_mask, queries, cand_ids, a, b,
     """Adaptive Col-Bandit rerank over the candidate list. ``seeds`` (B,
     ...) are the queries' seeds for ``draws``. ``engine`` picks the pooled
     frontier (default), its chain body, or the lockstep engine, which
-    ignores the fidelity knobs."""
+    ignores the fidelity knobs. The pooled engines read the revealed docs
+    in place in the resident corpus; the lockstep engine's einsum takes
+    the gathered candidates."""
     rerank = _rerank_engine(engine)
     cfg = _batched_config(topk, alpha_ef, delta, block_docs, block_tokens,
                           max_rounds, max_block_docs, max_block_tokens)
-    docs, dmask = gather_candidates(corpus_embs, corpus_mask, cand_ids)
-    return rerank(docs, dmask, queries, cand_ids, a, b, seeds, cfg,
-                  draws=draws, alpha_scale=alpha_scale, round_cap=round_cap)
+    kw = dict(draws=draws, alpha_scale=alpha_scale, round_cap=round_cap)
+    if engine == "vmapped":
+        docs, dmask = gather_candidates(corpus_embs, corpus_mask, cand_ids)
+        return rerank(docs, dmask, queries, cand_ids, a, b, seeds, cfg, **kw)
+    return rerank(corpus_embs, corpus_mask, queries, cand_ids, a, b, seeds,
+                  cfg, in_place=True, **kw)
 
 
 def make_serving_step(flavor: str, *, topk: int = 10, alpha_ef: float = 0.3,
@@ -335,8 +364,8 @@ def make_streaming_step(*, topk: int = 10, alpha_ef: float = 0.3,
 
     def step(corpus_embs, corpus_mask, queries, cand_ids, a, b, state,
              fresh, seeds):
-        docs, dmask = gather_candidates(corpus_embs, corpus_mask, cand_ids)
-        cells, cells_fused = _stacked_cells(docs, dmask, queries)
+        cells, cells_fused = _stacked_cells(corpus_embs, corpus_mask,
+                                            queries, cand_ids)
         res, new_state = run_pooled_bandit(
             cells, a, b, seeds, cfg, draws=draws, doc_mask=cand_ids >= 0,
             compute_cells_fused=cells_fused, fused=fused, carry=state,
