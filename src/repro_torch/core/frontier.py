@@ -40,13 +40,26 @@ as in JAX.
 
 Each trip is a function of tensors to tensors with no host read; the loop
 reads one flag from the device per trip (its continue test).
+
+Trip graphs (:class:`TripGraphs`): on the card a fused one-shot run may
+launch its trips as one CUDA graph a batch shape, captured at the first
+trip of a run made while the cache is armed (the serving engine's
+warm-up) and replayed for every trip of every later run of that shape.
+Every tensor the trip reads then lives in a static buffer of the graph
+(:meth:`TripGraph.stage`), each run copies its values in before the init
+reveal, and a replay writes the new state back into the buffers it reads.
+The trip body, the continue test and so the trips, rounds and statistics
+are the eager run's; only the launch differs.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+import threading
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch import spans
 from repro_torch.core import bounds as B
@@ -56,6 +69,7 @@ from repro_torch.core.batched import (BatchedConfig, CellFn,
                                       _round_select)
 from repro_torch.core.draws import DRAW_WIDTH, TORCH_DRAWS, DrawSource
 from repro_torch.core.state import BanditState
+from repro_torch.kernels import _build
 from repro_torch.kernels.reveal import reveal_stats
 
 _NEG = -3e38
@@ -163,6 +177,183 @@ def _knob(x, dtype) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype)
 
 
+def _profiled() -> bool:
+    """Whether torch's profiler is on: set before it starts tracing the
+    device and cleared once it has stopped."""
+    return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        False))
+
+
+def as_is(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The staging of a run without a trip graph: the operand itself."""
+    del name
+    return x
+
+
+class TripGraph:
+    """The fused trip of one batch shape as a CUDA graph over static
+    buffers. A run holding :attr:`lock` stages every tensor its trip reads
+    (:meth:`stage`), then loops over :meth:`bind`'s trip, whose first call
+    in the first run captures the run's ``fused_trip`` and whose every call
+    replays it. Off the card (a ``TripGraphs(stand_in=True)`` cache) the
+    "replay" calls that first run's trip eagerly on the same buffers,
+    which holds the CPU to what the graph reads: values staged by the
+    current run, and nothing else that changes between runs.
+
+    While torch's profiler is on, a trip on the card runs that same eager
+    call in place of the replay: CUPTI's device tracing deadlocks the
+    profiler's stop against a graph launched on another thread."""
+
+    def __init__(self, device: torch.device):
+        self.lock = threading.Lock()
+        self.device = device
+        self.replays = 0     # trips served by a replay
+        self._bufs: Dict[str, torch.Tensor] = {}
+        self._state: Optional[FrontierState] = None
+        self._occ: Optional[torch.Tensor] = None
+        self._replay: Optional[Callable[[], None]] = None
+        self._eager: Optional[Callable[[], None]] = None
+        self._launches: Dict[str, int] = {}
+
+    @property
+    def ready(self) -> bool:
+        """Whether the trip has been captured."""
+        return self._replay is not None
+
+    def stage(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The static buffer ``name`` holding ``x``: made by the first run,
+        copied into by every run (one launch)."""
+        buf = self._bufs.get(name)
+        if buf is None:
+            buf = self._bufs[name] = torch.empty_like(
+                x, memory_format=torch.contiguous_format)
+        elif buf.shape != x.shape or buf.dtype != x.dtype:
+            raise ValueError(f"trip graph operand {name!r}: "
+                             f"{tuple(x.shape)} {x.dtype} where the graph "
+                             f"holds {tuple(buf.shape)} {buf.dtype}")
+        return buf.copy_(x)
+
+    def bind(self, trip: Callable, state: FrontierState):
+        """(the loop's trip, its first state): ``state`` staged, and a trip
+        that stages the active mask and replays the graph (capturing
+        ``trip`` first where none is captured yet), returning the static
+        state and occupancy. Each replay adds the launches it holds to
+        ``kernels._build.LAUNCHES`` and one to :attr:`replays`; under the
+        profiler the trip runs eagerly on the same buffers (see the
+        class)."""
+        self._state = FrontierState(*(
+            self.stage(f"state.{f}", x)
+            for f, x in zip(FrontierState._fields, state)))
+
+        def replayed(st: FrontierState, active: torch.Tensor):
+            del st
+            active = self.stage("active", active)
+            if self._replay is None:
+                self._capture(trip, active)
+            if _profiled():
+                self._eager()
+            else:
+                self._replay()
+                _build.add_launches(self._launches)
+                self.replays += 1
+            return self._state, self._occ
+
+        return replayed, self._state
+
+    def release(self, state: FrontierState) -> FrontierState:
+        """A loop's final state as fresh tensors: the static buffers are
+        the next run's, and a pipelined batch is read after it starts."""
+        return FrontierState(*(x.clone() for x in state))
+
+    def _capture(self, trip: Callable, active: torch.Tensor) -> None:
+        st = self._state
+        self._occ = torch.zeros((), dtype=torch.float32, device=self.device)
+        occ_buf = self._occ
+
+        def eager():
+            nxt, occ = trip(st, active)
+            for dst, src in zip(st, nxt):
+                dst.copy_(src)
+            occ_buf.copy_(occ)
+
+        self._eager = eager
+        if self.device.type != "cuda":
+            self._replay = eager
+            return
+        # One eager trip on the capture stream first, so what a first call
+        # makes and keeps (cached index tensors, the kernels' libraries) is
+        # made outside the capture; its outputs are dropped.
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            trip(st, active)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = _build.launch_counts()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            nxt, occ = trip(st, active)
+            for dst, src in zip(st, nxt):
+                dst.copy_(src)
+            occ_buf.copy_(occ)
+        after = _build.launch_counts()
+        self._launches = {k: n - before[k] for k, n in after.items()
+                          if n != before[k]}
+        # A capture launches nothing: its counts come back at each replay.
+        _build.add_launches(self._launches, -1)
+        self._replay = graph.replay
+
+
+class TripGraphs:
+    """One step's trip graphs, by batch shape key. :meth:`use` hands a run
+    the key's graph, locked (one run at a time on its buffers), where the
+    run is on the card (or ``stand_in``), no dispatch mode records it (an
+    audit or a FLOP count sees the eager ops), and the key's trip has been
+    captured, or the cache is armed (:meth:`capturing`), which makes and
+    captures it at the run's first trip. Every other run gets None and
+    runs its trips eagerly."""
+
+    def __init__(self, *, stand_in: bool = False):
+        self._graphs: Dict[tuple, TripGraph] = {}
+        self._lock = threading.Lock()
+        self._armed = False
+        self._stand_in = stand_in
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Arm capture for the runs made inside (on one thread, while no
+        other thread launches on the card)."""
+        self._armed = True
+        try:
+            yield self
+        finally:
+            self._armed = False
+
+    def captured(self) -> list:
+        """The keys whose trip has been captured."""
+        with self._lock:
+            return [k for k, g in self._graphs.items() if g.ready]
+
+    @contextlib.contextmanager
+    def use(self, key: tuple, device: torch.device):
+        """The graph a run of ``key`` on ``device`` launches its trips
+        through, held under its lock, or None (see the class)."""
+        graph = None
+        if ((device.type == "cuda" or self._stand_in)
+                and _get_current_dispatch_mode() is None):
+            with self._lock:
+                graph = self._graphs.get(key)
+                if graph is None and self._armed:
+                    graph = self._graphs[key] = TripGraph(device)
+            if graph is not None and not (graph.ready or self._armed):
+                graph = None
+        if graph is None:
+            yield None
+            return
+        with graph.lock:
+            yield graph
+
+
 def run_pooled_bandit(
     compute_cells: CellFn,
     a: torch.Tensor,                # (Q, N, T) lower support per cell
@@ -182,6 +373,7 @@ def run_pooled_bandit(
     return_state: bool = False,
     alpha_scale=None,                        # () f32 >= 1: fidelity knob
     round_cap=None,                          # () int: round cap (<= 0 off)
+    graph: Optional[TripGraph] = None,       # held: launch trips through it
 ):
     """Run the pooled bandit and return per-query results.
 
@@ -213,7 +405,16 @@ def run_pooled_bandit(
     Finite-score guard (always on): a revealed cell that comes back
     non-finite is recorded as ``_QUAR``; its doc is excluded from the
     final top-K and counted in ``PooledResult.quarantined``.
+
+    ``graph`` (a :class:`TripGraph` whose lock the caller holds; fused
+    one-shot runs only) stages every operand the trip reads into the
+    graph's buffers and replays the captured trip in place of each eager
+    one; ``compute_cells_fused`` must then read staged operands too.
     """
+    if graph is not None and not (fused and carry is None
+                                  and trip_limit <= 0 and not return_state):
+        raise ValueError("a trip graph runs the fused one-shot body only")
+    stage = as_is if graph is None else graph.stage
     draws = draws or TORCH_DRAWS
     Q, N, T = a.shape
     dev = a.device
@@ -239,8 +440,13 @@ def run_pooled_bandit(
                                  max_rounds)
     if doc_mask is None:
         doc_mask = torch.ones((Q, N), dtype=torch.bool, device=dev)
-    a = torch.where(doc_mask[:, :, None], a, 0.0).to(torch.float32)
-    b = torch.where(doc_mask[:, :, None], b, 0.0).to(torch.float32)
+    # Everything a trip reads is staged (a trip graph's buffers, else the
+    # tensors themselves).
+    doc_mask = stage("doc_mask", doc_mask)
+    a = stage("a", torch.where(doc_mask[:, :, None], a, 0.0).to(
+        torch.float32))
+    b = stage("b", torch.where(doc_mask[:, :, None], b, 0.0).to(
+        torch.float32))
 
     pr_flat = pv_flat = None
     if prereveal is not None:
@@ -253,8 +459,10 @@ def run_pooled_bandit(
             torch.float32), 0.0)
         pv_flat = _sanitize(pv_flat)
 
-    q_doc_off = (torch.arange(Q, device=dev) * N)[:, None]       # (Q, 1)
-    tok_off = (torch.arange(Q * N, device=dev) // N * T)[:, None]
+    q_doc_off = stage("q_doc_off",
+                      (torch.arange(Q, device=dev) * N)[:, None])  # (Q, 1)
+    tok_off = stage("tok_off",
+                    (torch.arange(Q * N, device=dev) // N * T)[:, None])
 
     # Per-slot draw state and the init reveal's token per candidate (paper
     # footnote 2: one random cell per doc, all queries in one reveal).
@@ -363,15 +571,18 @@ def run_pooled_bandit(
     def run_loop(trip, state, trip_rows: int):
         """Trips until no slot is active or ``trip_limit`` is reached: one
         host read per trip (the continue test), none inside ``trip``.
-        Adds its trips, host reads, the ns blocked in them, its own ns and
+        Adds its trips, host reads, the ns blocked in them, its own ns,
         the frontier rows the reveal launches staged (the init launch's
-        Q*N, ``trip_rows`` a trip) to the calling thread's open batch
-        stamps (``repro_torch.spans``), where one is open."""
+        Q*N, ``trip_rows`` a trip) and the trips that replayed ``graph``
+        (where ``trip`` is its bound trip) to the calling
+        thread's open batch stamps (``repro_torch.spans``), where one is
+        open."""
         stamps = spans.open_stamps()
         now = spans.now_ns
         trips = 0
         reads = wait_ns = 0
         occ_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        replays0 = graph.replays if graph is not None else 0
         t_loop = now()
         while trip_limit <= 0 or trips < trip_limit:
             active = ~state.done & (state.rounds < max_rounds)
@@ -390,6 +601,8 @@ def run_pooled_bandit(
             stamps[spans.WAIT_NS] += wait_ns
             stamps[spans.LOOP_NS] += now() - t_loop
             stamps[spans.REVEAL_ROWS] += Q * N + trips * trip_rows
+            stamps[spans.GRAPH_TRIPS] += (graph.replays - replays0
+                                          if graph is not None else 0)
         return state, trips, occ_sum
 
     # Queries with NO valid candidate start retired (rounds stay 0).
@@ -452,9 +665,14 @@ def run_pooled_bandit(
 
         # A trip launches the compacted F-row frontier with growth, else
         # the Q*W selection rows.
-        state, trips, occ_sum = run_loop(
-            fused_trip, FrontierState(cellvals0, stats0, draw0, rounds0,
-                                      done0), F if half_w > half else Q * W)
+        trip_rows = F if half_w > half else Q * W
+        state0 = FrontierState(cellvals0, stats0, draw0, rounds0, done0)
+        if graph is None:
+            state, trips, occ_sum = run_loop(fused_trip, state0, trip_rows)
+        else:
+            replayed, state0 = graph.bind(fused_trip, state0)
+            state, trips, occ_sum = run_loop(replayed, state0, trip_rows)
+            state = graph.release(state)
         res = finalize(state.stats[:, 0], state.stats[:, 1],
                        state.stats[:, 2], state.cellvals < _REV_THRESH,
                        state.rounds, trips, occ_sum,

@@ -8,10 +8,11 @@ process per source, all started together. Libraries land in
 and flags, so an unchanged tree reuses them; a finished library is moved
 into place atomically, so concurrent processes never load a partial file.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; callers
-reset it with :func:`reset_launches` to show that a run went through the
-kernels. Both the library cache and the counts are shared by every thread
-of the process (the async serving engine launches from its own threads),
+``LAUNCHES`` counts, per kernel, the launches its wrapper made and those
+a CUDA graph replays (:func:`add_launches`); callers reset it with
+:func:`reset_launches` to show that a run went through the kernels. Both
+the library cache and the counts are shared by every thread of the
+process (the async serving engine launches from its own threads),
 so each is changed under a lock: concurrent first uses build and load a
 library once, and no launch goes uncounted.
 """
@@ -92,6 +93,22 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of ``LAUNCHES``, read under its lock."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Count ``counts`` launches ``times`` over: a CUDA graph's captured
+    launches at each replay, which passes no wrapper."""
+    if not counts:
+        return
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n * times
 
 
 def _nvcc() -> str:

@@ -43,6 +43,7 @@ accept and ignore them.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -54,13 +55,14 @@ from repro_torch.core.bandit import stable_topk
 from repro_torch.core.batched import (BatchedConfig, _max_rounds,
                                       run_batched_bandit)
 from repro_torch.core.draws import TORCH_DRAWS, DrawSource
-from repro_torch.core.frontier import (FrontierState, init_frontier_state,
+from repro_torch.core.frontier import (FrontierState, TripGraphs, as_is,
+                                       init_frontier_state,
                                        run_pooled_bandit)
 from repro_torch.kernels.ops import (fused_reveal_op, gather_maxsim_op,
                                      maxsim_batch_op)
 from repro_torch.dist.mesh import Mesh, shard_parts
 from repro_torch.kernels.quant import QuantTokens, corpus_index, \
-    corpus_reshape
+    corpus_leaves, corpus_reshape
 from repro_torch.retrieval.ann import CandidateSet, generate_candidates
 from repro_torch.retrieval.corpus import gather_tokens, route_mass, \
     route_quotas
@@ -94,7 +96,7 @@ def _local_maxsim_scores(doc_embs, doc_mask, queries):
     return h.sum(dim=-1)
 
 
-def _stacked_cells(embs, mask, queries, cand_ids=None):
+def _stacked_cells(embs, mask, queries, cand_ids=None, stage=as_is):
     """The pooled engine's cell sources, the chain contract
     (``gather_maxsim``) and the fused one (``fused_reveal``), over the
     frontier's Q*N candidate rows and query tokens stacked to (Q*T, M).
@@ -104,9 +106,11 @@ def _stacked_cells(embs, mask, queries, cand_ids=None):
     ``cand_ids[q, i]``. A padded slot (-1) reads row 0; the frontier keeps
     its cells out of the statistics (``doc_mask``). Without, they are a
     gathered (Q, N, L, M) block and frontier row q*N + i is its own row.
-    Either way the launch's tuning bucket counts the Q*N rows."""
+    Either way the launch's tuning bucket counts the Q*N rows. ``stage``
+    places the stacked queries and the row ids where a trip graph reads
+    them (``core.frontier.TripGraph.stage``)."""
     Q, T, M = queries.shape
-    flat_q = queries.reshape(Q * T, M)
+    flat_q = stage("flat_q", queries.reshape(Q * T, M))
     if cand_ids is None:
         n_rows, L = embs.shape[0] * embs.shape[1], embs.shape[2]
         src = corpus_reshape(embs, n_rows)    # quantized: leaf-wise reshape
@@ -117,7 +121,8 @@ def _stacked_cells(embs, mask, queries, cand_ids=None):
     else:
         n_rows = cand_ids.numel()
         src, src_mask = embs, mask
-        doc_ids = torch.clamp(cand_ids, min=0).reshape(-1).to(torch.int64)
+        doc_ids = stage("doc_ids", torch.clamp(cand_ids, min=0).reshape(
+            -1).to(torch.int64))
 
         def rows(flat_doc):
             return doc_ids[flat_doc]
@@ -168,26 +173,56 @@ def rerank_dense_step(corpus_embs, corpus_mask, queries, cand_ids, a=None,
     return best, gids, frac, torch.stack([one, zero, zero, quar])
 
 
+def _graph_key(docs, dmask, queries, a, cfg: BatchedConfig, draws,
+               alpha_scale) -> Optional[tuple]:
+    """A fused in-place run's trip-graph key: the batch shape (Q, N, T, M)
+    and dtype, the config (so W, G_cap, F and the compaction), the draw
+    source, the resident corpus it reads (a graph holds its addresses) and
+    the alpha scale, which a trip reads as a host scalar and a capture
+    bakes in. None where the scale is a device tensor (never read here):
+    such a run stays eager."""
+    if isinstance(alpha_scale, torch.Tensor):
+        if alpha_scale.device.type != "cpu":
+            return None
+        alpha_scale = float(alpha_scale)
+    corpus = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                   for t in (*corpus_leaves(docs), dmask))
+    return (tuple(a.shape), tuple(queries.shape), queries.dtype, cfg, draws,
+            1.0 if alpha_scale is None else float(alpha_scale), corpus)
+
+
 def _pooled_rerank(docs, dmask, queries, cand_ids, a, b, seeds,
                    cfg: BatchedConfig, *, fused: bool, in_place=False,
                    draws=None, prereveal=None, prereveal_vals=None,
-                   alpha_scale=None, round_cap=None):
+                   alpha_scale=None, round_cap=None,
+                   trip_graphs: Optional[TripGraphs] = None):
     """Pooled frontier engine: every trip reveals all queries' blocks in
     one launch on query-offset indices. ``docs``/``dmask`` are the gathered
     (B, N, L, M) candidates, or with ``in_place`` the resident corpus,
     read by ``cand_ids`` (:func:`_stacked_cells`).
     ``prereveal``/``prereveal_vals`` (B, N, T) seed exactly-known cells at
     zero reveal cost; ``alpha_scale``/``round_cap`` are the fidelity
-    knobs."""
-    cells, cells_fused = _stacked_cells(docs, dmask, queries,
-                                        cand_ids if in_place else None)
-    res = run_pooled_bandit(cells, a, b, seeds, cfg, draws=draws,
-                            doc_mask=cand_ids >= 0,
-                            compute_cells_fused=cells_fused, fused=fused,
-                            prereveal=prereveal,
-                            prereveal_vals=prereveal_vals,
-                            alpha_scale=alpha_scale, round_cap=round_cap)
-    return _pooled_outputs(res, cand_ids)
+    knobs. A fused in-place run launches its trips through ``trip_graphs``
+    where that holds a graph of its key (:class:`core.frontier.TripGraphs`,
+    :func:`_graph_key`)."""
+    key = (_graph_key(docs, dmask, queries, a, cfg, draws, alpha_scale)
+           if trip_graphs is not None and fused and in_place else None)
+    with (trip_graphs.use(key, queries.device) if key is not None
+          else contextlib.nullcontext()) as graph:
+        if graph is None:
+            cells, cells_fused = _stacked_cells(
+                docs, dmask, queries, cand_ids if in_place else None)
+        else:
+            cells, cells_fused = _stacked_cells(docs, dmask, queries,
+                                                cand_ids, stage=graph.stage)
+        res = run_pooled_bandit(cells, a, b, seeds, cfg, draws=draws,
+                                doc_mask=cand_ids >= 0,
+                                compute_cells_fused=cells_fused, fused=fused,
+                                prereveal=prereveal,
+                                prereveal_vals=prereveal_vals,
+                                alpha_scale=alpha_scale, round_cap=round_cap,
+                                graph=graph)
+        return _pooled_outputs(res, cand_ids)
 
 
 def _bandit_one_query(cfg: BatchedConfig, draws=None):
@@ -283,13 +318,15 @@ def rerank_bandit_step(corpus_embs, corpus_mask, queries, cand_ids, a, b,
                        max_block_docs: int = 0, max_block_tokens: int = 0,
                        engine: str = "pooled",
                        draws: Optional[DrawSource] = None,
-                       alpha_scale=None, round_cap=None):
+                       alpha_scale=None, round_cap=None,
+                       trip_graphs: Optional[TripGraphs] = None):
     """Adaptive Col-Bandit rerank over the candidate list. ``seeds`` (B,
     ...) are the queries' seeds for ``draws``. ``engine`` picks the pooled
     frontier (default), its chain body, or the lockstep engine, which
     ignores the fidelity knobs. The pooled engines read the revealed docs
     in place in the resident corpus; the lockstep engine's einsum takes
-    the gathered candidates."""
+    the gathered candidates. ``trip_graphs`` is the step's cache of
+    captured fused trips (:class:`core.frontier.TripGraphs`)."""
     rerank = _rerank_engine(engine)
     cfg = _batched_config(topk, alpha_ef, delta, block_docs, block_tokens,
                           max_rounds, max_block_docs, max_block_tokens)
@@ -298,7 +335,7 @@ def rerank_bandit_step(corpus_embs, corpus_mask, queries, cand_ids, a, b,
         docs, dmask = gather_candidates(corpus_embs, corpus_mask, cand_ids)
         return rerank(docs, dmask, queries, cand_ids, a, b, seeds, cfg, **kw)
     return rerank(corpus_embs, corpus_mask, queries, cand_ids, a, b, seeds,
-                  cfg, in_place=True, **kw)
+                  cfg, in_place=True, trip_graphs=trip_graphs, **kw)
 
 
 def make_serving_step(flavor: str, *, topk: int = 10, alpha_ef: float = 0.3,
@@ -306,11 +343,13 @@ def make_serving_step(flavor: str, *, topk: int = 10, alpha_ef: float = 0.3,
                       block_tokens: int = 8, max_rounds: int = -1,
                       max_block_docs: int = 0, max_block_tokens: int = 0,
                       engine: str = "pooled",
-                      draws: Optional[DrawSource] = None):
+                      draws: Optional[DrawSource] = None,
+                      trip_graphs: Optional[TripGraphs] = None):
     """Step factory with the uniform step signature ``(corpus_embs,
     corpus_mask, queries, cand_ids, a, b, seeds, [alpha_scale,
     round_cap])``; ``engine`` picks the bandit reveal engine, dense ignores
-    it."""
+    it. ``trip_graphs`` (bandit) launches the fused body's trips of the
+    shapes it has captured as CUDA graphs."""
     _rerank_engine(engine)
     if flavor == "dense":
         return functools.partial(rerank_dense_step, topk=topk)
@@ -319,7 +358,8 @@ def make_serving_step(flavor: str, *, topk: int = 10, alpha_ef: float = 0.3,
             rerank_bandit_step, topk=topk, alpha_ef=alpha_ef, delta=delta,
             block_docs=block_docs, block_tokens=block_tokens,
             max_rounds=max_rounds, max_block_docs=max_block_docs,
-            max_block_tokens=max_block_tokens, engine=engine, draws=draws)
+            max_block_tokens=max_block_tokens, engine=engine, draws=draws,
+            trip_graphs=trip_graphs)
     raise ValueError(f"unknown serving flavor: {flavor!r}")
 
 

@@ -52,6 +52,7 @@ runs every warmed bucket once under the contract recorder
 from __future__ import annotations
 
 import array
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -71,6 +72,7 @@ from repro_torch import spans
 from repro_torch.analysis.audit import (HLO_DTYPES, AuditReport, AuditSpec,
                                         audit_step, scorecard_budget_bytes)
 from repro_torch.core.draws import TORCH_DRAWS, DrawSource
+from repro_torch.core.frontier import TripGraphs
 from repro_torch.dist.fault import (ChaosKill, DeadlineBatcher, FaultPlan,
                                     apply_delay)
 from repro_torch.dist.mesh import make_mesh, mesh_devices
@@ -729,6 +731,7 @@ class RetrievalEngine:
                        max_block_docs=cfg.max_block_docs,
                        max_block_tokens=cfg.max_block_tokens)
         draws, base = self._draws, self._base_seed
+        graphs = None
         if key[0] == "step" and self.sharded is not None:
             run = make_sharded_serving_step(
                 self.sharded.mesh, key[1], engine=cfg.bandit_engine,
@@ -736,8 +739,14 @@ class RetrievalEngine:
                 draws=draws, **step_kw)
         elif key[0] == "step":
             flavor = key[1]
+            if flavor == "bandit" and cfg.bandit_engine in ("pooled",
+                                                            "pooled_fused"):
+                # The fused body's trips of this bucket, as the CUDA graph
+                # the warm run below captures (used on the card only).
+                graphs = TripGraphs()
             step = make_serving_step(flavor, engine=cfg.bandit_engine,
-                                     draws=draws, **step_kw)
+                                     draws=draws, trip_graphs=graphs,
+                                     **step_kw)
 
             def run(ce, cm, q, cand, a, b, ordinal, a_s, r_c):
                 # Per-batch draws: fold the batch ordinal into the
@@ -776,10 +785,18 @@ class RetrievalEngine:
                 return cs.doc_ids, cs.a, cs.b
         else:
             raise KeyError(key)
-        # One capped round: enough to launch every kernel of the step.
-        for x in run(*self._warm_args(key, round_cap=1))[:5]:
-            x.cpu()
+        # One capped round: enough to launch every kernel of the step, and
+        # to capture a bandit step's trip while no serving thread launches.
+        with (graphs.capturing() if graphs is not None and self._may_capture()
+              else contextlib.nullcontext()):
+            for x in run(*self._warm_args(key, round_cap=1))[:5]:
+                x.cpu()
         return run
+
+    def _may_capture(self) -> bool:
+        """Whether a build may capture a CUDA graph: only before warm-up
+        is done, as nothing else launches on the card then."""
+        return not self._warmed
 
     def _stage1_operands(self):
         """(embs, mask) stage 1 scans: the corpus, or on a mesh the whole
@@ -866,7 +883,9 @@ class RetrievalEngine:
         With ``cfg.autotune`` the launch shapes are tuned first (per shape
         bucket, reusing and persisting ``cfg.tuning_table``), so the warmed
         steps launch the tuned shapes; with ``cfg.audit`` every warmed
-        bucket is audited last."""
+        bucket is audited last. On the card each pooled fused bandit
+        bucket's trip is captured as a CUDA graph by its build here
+        (``core.frontier.TripGraphs``), while no serving thread runs."""
         cfg = self.cfg
         if cfg.tuning_table and os.path.exists(cfg.tuning_table):
             self.metrics.tuning_entries_loaded += tuning.load_table(
@@ -1532,6 +1551,10 @@ class AsyncRetrievalEngine(RetrievalEngine):
         if self._supervisor is not None:
             self._supervisor.start()
         return self
+
+    def _may_capture(self) -> bool:
+        """Before warm-up is done and before the serving threads start."""
+        return not self._warmed and not self._started
 
     def _spawn(self, name: str) -> threading.Thread:
         """Build AND start one named serving thread: the initial spawn and

@@ -32,9 +32,11 @@ The counters after them: ``stage1_queries`` (queries the stage-1 call
 served), and from the pooled trip loop (``core/frontier.py::run_loop``,
 summed over a mesh's per-shard loops) ``trips``, ``reads`` (its host reads,
 the continue tests), ``wait_ns`` (time blocked in them), ``loop_ns``
-(first iteration to last) and ``reveal_rows`` (the frontier rows its
-reveal launches stage: the init launch's Q*N and each trip's launch rows,
-counted from their shapes).
+(first iteration to last), ``graph_trips`` (its trips that replayed a
+captured trip graph, ``core/frontier.py::TripGraph``; 0 on the eager
+path) and ``reveal_rows`` (the frontier rows its reveal launches stage:
+the init launch's Q*N and each trip's launch rows, counted from their
+shapes).
 
 A thread that works on a batch opens its stamps (:func:`open_batch`) so
 code below the engine finds them (:func:`open_stamps`) without an
@@ -60,12 +62,12 @@ SPANS = ("admit", "stage1", "upload", "queued", "step", "held", "harvest",
          "download", "deliver")
 PARENTS = {"stage1": "admit", "upload": "admit", "download": "harvest"}
 COUNTERS = ("stage1_queries", "trips", "reads", "wait_ns", "loop_ns",
-            "reveal_rows")
+            "graph_trips", "reveal_rows")
 
 # Slot offsets (a span's thread id; its start and end follow).
 (ADMIT, STAGE1, UPLOAD, QUEUED, STEP, HELD, HARVEST, DOWNLOAD,
  DELIVER) = range(0, 3 * len(SPANS), 3)
-(STAGE1_QUERIES, TRIPS, READS, WAIT_NS, LOOP_NS,
+(STAGE1_QUERIES, TRIPS, READS, WAIT_NS, LOOP_NS, GRAPH_TRIPS,
  REVEAL_ROWS) = range(3 * len(SPANS), 3 * len(SPANS) + len(COUNTERS))
 WIDTH = 3 * len(SPANS) + len(COUNTERS)
 _ZEROS = array.array("q", bytes(8 * WIDTH))

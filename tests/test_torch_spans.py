@@ -7,7 +7,8 @@
     does that work, with stamps between ``time.time_ns()`` read before and
     after; ``bid`` ties a batch's record to its completions;
   * the pooled trip loop's counters equal ``PooledResult.trips`` of the
-    same call, with one host read a trip plus the last test;
+    same call, with one host read a trip plus the last test, and no graph
+    trip on the eager path; ``graph_trips`` takes one more counter slot;
   * the collector hook, counted by its users, and build events after a
     warmup of chosen buckets.
 """
@@ -202,6 +203,8 @@ def test_trip_counters_equal_pooled_result(fused, trip_limit):
     else:
         assert spans.counter(st, "reads") == trips + 1
     assert 0 < spans.counter(st, "wait_ns") <= spans.counter(st, "loop_ns")
+    # No trip graph: no trip replayed one.
+    assert spans.counter(st, "graph_trips") == 0
     # Without open stamps the loop records nothing.
     before = spans.new()
     run_pooled_bandit(cells, a, b, seeds, cfg, fused=fused)
@@ -223,6 +226,22 @@ def test_stamps_layout():
     assert spans.counter(st, "trips") == 4
     assert [sp.name for sp in spans.spans(st)] == ["step", "held"]
     assert spans.spans(st)[0].parent is None
+
+
+def test_graph_trips_slot():
+    """``graph_trips`` is one more counter slot: the stamps grow by one,
+    and every span keeps its offset."""
+    assert spans.COUNTERS[:5] == ("stage1_queries", "trips", "reads",
+                                  "wait_ns", "loop_ns")
+    assert set(spans.COUNTERS[5:]) == {"graph_trips", "reveal_rows"}
+    assert spans.WIDTH == 3 * 9 + 7 == len(spans.new())
+    assert spans.GRAPH_TRIPS == 3 * len(spans.SPANS) + \
+        spans.COUNTERS.index("graph_trips")
+    st = spans.new()
+    st[spans.GRAPH_TRIPS] += 3
+    assert spans.counter(st, "graph_trips") == 3
+    assert spans.counter(st, "reveal_rows") == spans.counter(st, "trips") \
+        == 0
 
 
 def test_gc_hook_is_counted_by_its_users():
